@@ -1,15 +1,15 @@
-"""Per-move step timing on a standard config: the TPU-landmine detector.
+"""Per-move step timing on a standard config: the slow-lowering detector.
 
-Round 4 found a 6x sampler-wide regression hiding in ONE op
-(`RedBlueGroupStretchMove`'s vmapped `searchsorted` serialized on TPU, see
-``docs/performance.md``).  This benchmark times every in-model move of the
-zoo — and the RJ moves — at the same PT configuration, so a pathological
-lowering in any one kernel shows up as an outlier instead of surfacing
-months later inside a user's run.
+A single op with a pathological lowering (a vmapped ``searchsorted`` once
+serialized a whole step) can slow every run that draws its move.  This
+benchmark times every in-model move of the zoo — and the RJ moves — at the
+same PT configuration, so a pathological lowering in any one kernel shows
+up as an outlier instead of surfacing months later inside a user's run.
 
 Usage: ``python benchmarks/move_zoo_timing.py [--nsteps N] [--cpu]``
 Prints one line per move: steps/s and us/step (sorted slowest-first at the
-end).  On CPU it is a smoke test; the numbers only mean something on TPU.
+end).  On CPU it is a smoke test; the numbers only mean something on the
+GPU.
 """
 
 import argparse
@@ -18,9 +18,8 @@ import os
 import sys
 import time
 
-sys.path.insert(
-    0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import numpy as np
 
@@ -58,8 +57,7 @@ def build_moves():
         "MTDistGenMove(8 tries)": MTDistGenMove(
             {"model_0": dist}, num_try=8, independent=True
         ),
-        "StretchMove(pallas)": StretchMove(),
-        "StretchMove(xla)": StretchMove(use_pallas=False),
+        "StretchMove": StretchMove(),
         "RedBlueGroupStretchMove": RedBlueGroupStretchMove(),
         "GroupStretchMove": GroupStretchMove(),
         "GaussianMove(diag)": GaussianMove(cov),
@@ -174,8 +172,11 @@ def main():
 
     import jax
 
+    from eryn_tpu.compile_cache import use_compile_cache
+
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    use_compile_cache(ROOT)
     nsteps = args.nsteps or (2000 if not args.cpu else 50)
 
     results = {}

@@ -1,9 +1,10 @@
-"""Microbenchmark: RBGS complement selection — fused VMEM kernel vs XLA.
+"""Microbenchmark: RBGS complement selection — one-hot contraction vs
+searchsorted + gather.
 
 Times the full null-likelihood sampler step at the LISA benchmark shape
 (10 temps x 200 walkers x 8 leaves x 3 params, RedBlueGroupStretchMove +
-RJ) with the fused selection kernel enabled vs disabled, plus the
-standalone selection op.  Run on TPU after touching the selection path.
+RJ) on each of the move's two selection paths, plus the standalone
+selection op.  Run on the GPU after touching the selection path.
 
 Usage: ``python benchmarks/select_microbench.py [--nsteps N]``
 """
@@ -14,15 +15,16 @@ import os
 import sys
 import time
 
-sys.path.insert(
-    0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import functools
 
 import numpy as np
 
 
 def timed_scan(fn, args, nsteps):
-    """Slope-timed scan rate (see benchmarks/mxu_matched_filter.py)."""
+    """Slope-timed scan rate (see benchmarks/matched_filter.py)."""
     import jax
 
     def total(n):
@@ -41,11 +43,9 @@ def timed_scan(fn, args, nsteps):
 
 
 def op_bench(nsteps):
-    """Standalone selection op: XLA one-hot vs fused kernel."""
+    """Standalone selection op: one-hot contraction vs searchsorted."""
     import jax
     import jax.numpy as jnp
-
-    from eryn_tpu.ops.select_kernels import onehot_select
 
     nt, Q, M, nd = 10, 800, 800, 3
     rng = np.random.default_rng(0)
@@ -67,13 +67,14 @@ def op_bench(nsteps):
             precision=jax.lax.Precision.HIGHEST,
         )
 
-    def fused_step(key):
+    def searchsorted_step(key):
         kq = jnp.floor(
             jax.random.uniform(key, (nt, Q)) * jnp.maximum(cnt, 1.0)[:, None]
         )
-        return onehot_select(cs, kq, c_clean)
-
-    import functools
+        idx = jax.vmap(functools.partial(jnp.searchsorted, side="right"))(cs, kq)
+        return jnp.take_along_axis(
+            c_clean, jnp.minimum(idx, M - 1)[..., None], axis=1
+        )
 
     def make_scan(step):
         @functools.partial(jax.jit, static_argnames=("n",))
@@ -92,18 +93,18 @@ def op_bench(nsteps):
 
     key = jax.random.key(0)
     res = {}
-    for name, step in [("xla", xla_step), ("fused", fused_step)]:
+    for name, step in [("onehot", xla_step), ("searchsorted", searchsorted_step)]:
         per = timed_scan(make_scan(step), (key,), nsteps)
         res[f"select_{name}_us"] = round(per * 1e6, 2)
     return res
 
 
-def move_bench(nsteps, use_fused):
+def move_bench(nsteps, searchsorted):
     from eryn_tpu.moves import rbgroupstretch
 
     limit = rbgroupstretch._ONEHOT_BYTES_LIMIT
-    if use_fused:
-        # one-hot "does not fit HBM" -> the move picks the VMEM kernel
+    if searchsorted:
+        # the one-hot tensor "does not fit" -> the move takes searchsorted
         rbgroupstretch._ONEHOT_BYTES_LIMIT = 0
     try:
         from benchmarks.lisa_style import build
@@ -176,9 +177,16 @@ def main():
     ap.add_argument("--nsteps", type=int, default=400)
     args = ap.parse_args()
 
+    import jax
+
+    from eryn_tpu.compile_cache import use_compile_cache
+
+    if jax.devices()[0].platform != "gpu":
+        sys.exit("select_microbench: no GPU; nothing measured")
+    use_compile_cache(ROOT)
     res = op_bench(args.nsteps)
-    res["null_step_xla_us"] = move_bench(args.nsteps, use_fused=False)
-    res["null_step_fused_us"] = move_bench(args.nsteps, use_fused=True)
+    res["null_step_onehot_us"] = move_bench(args.nsteps, searchsorted=False)
+    res["null_step_searchsorted_us"] = move_bench(args.nsteps, searchsorted=True)
     res["abl_floor_us"] = ablation_bench(args.nsteps, "floor")
     res["abl_rbgs_us"] = ablation_bench(args.nsteps, "rbgs")
     res["abl_rbgs_rj_us"] = ablation_bench(args.nsteps, "rbgs_rj")

@@ -10,7 +10,8 @@ import os
 import sys
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import numpy as np
 import jax
@@ -50,6 +51,9 @@ NT, NW = 20, 1000
 
 
 def main():
+    from eryn_tpu.compile_cache import use_compile_cache
+
+    use_compile_cache(ROOT)
     priors = ProbDistContainer({i: uniform_dist(-5, 5) for i in range(NDIM)})
 
     def ll_simple(x):

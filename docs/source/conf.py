@@ -49,5 +49,5 @@ intersphinx_mapping = {
 }
 
 html_theme = "furo"
-html_title = "eryn_tpu — TPU-native ensemble MCMC"
+html_title = "eryn_tpu — compiled ensemble MCMC in JAX"
 html_static_path = []

@@ -1,4 +1,4 @@
-"""eryn_tpu: a TPU-native "omni-MCMC" ensemble sampler.
+"""eryn_tpu: a JAX "omni-MCMC" ensemble sampler.
 
 A from-scratch JAX/XLA re-design with the capabilities of the reference Eryn
 sampler (mikekatz04/Eryn): affine-invariant ensemble MCMC with parallel
@@ -10,27 +10,6 @@ checkpoint/resume, priors, and diagnostics — with the entire hot loop
 """
 
 __version__ = "0.1.0"
-
-import os as _os
-
-# Segment programs are compiled per (length, store) pair; on remote-compile
-# TPU runtimes a cold compile can cost tens of seconds, so persist compiled
-# executables across processes by default.  Opt out with
-# ERYN_TPU_DISABLE_CACHE=1 or by setting jax_compilation_cache_dir yourself.
-if _os.environ.get("ERYN_TPU_DISABLE_CACHE") != "1":
-    try:
-        import jax as _jax
-
-        if _jax.config.jax_compilation_cache_dir is None:
-            _jax.config.update(
-                "jax_compilation_cache_dir",
-                _os.path.expanduser("~/.cache/eryn_tpu_jax"),
-            )
-            _jax.config.update(
-                "jax_persistent_cache_min_compile_time_secs", 1.0
-            )
-    except Exception:  # pragma: no cover
-        pass
 
 from .ensemble import EnsembleSampler, walkers_independent
 from .model import Model

@@ -2,17 +2,9 @@
 
 from .backend import Backend
 from .devicebackend import DeviceBackend
+from .hdfbackend import HDFBackend, TempHDFBackend, h5py
 
-try:  # pragma: no cover - staged build
-    from .hdfbackend import HDFBackend, TempHDFBackend
-
-    __all__ = ["Backend", "DeviceBackend", "HDFBackend", "TempHDFBackend"]
-except ImportError:  # pragma: no cover
-    class HDFBackend:  # type: ignore
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError("HDFBackend requires h5py.")
-
-    __all__ = ["Backend", "DeviceBackend", "HDFBackend"]
+__all__ = ["Backend", "DeviceBackend", "HDFBackend", "TempHDFBackend"]
 
 
 def get_test_backends():
@@ -20,8 +12,6 @@ def get_test_backends():
     the in-memory backend plus, when h5py is available, the temp-file HDF
     backend context manager."""
     backends = [Backend]
-    # guard on the name actually bound at import time: h5py may import fine
-    # while hdfbackend's own import chain failed
-    if "TempHDFBackend" in globals():
+    if h5py is not None:
         backends.append(TempHDFBackend)
     return backends

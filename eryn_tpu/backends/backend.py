@@ -1,7 +1,7 @@
 """In-memory chain storage backend.
 
 Behavioral re-design of ``/root/reference/src/eryn/backends/backend.py:16-1159``
-for the TPU build: the device produces snapshots at storage boundaries, the
+for the compiled sampler: the device produces snapshots at storage boundaries, the
 backend holds host-side NumPy buffers with the reference's layout
 ``(nsteps, ntemps, nwalkers, nleaves_max, ndim)`` per branch, NaN-masks dead
 leaves on save (``backend.py:1049-1059``), and serves the same getter /

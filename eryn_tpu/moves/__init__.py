@@ -4,6 +4,28 @@ from .move import Move, EvalContext
 from .red_blue import RedBlueMove
 from .stretch import StretchMove
 from .tempering import TemperatureControl, make_ladder
+from .mh import MHMove
+from .gaussian import GaussianMove
+from .distgen import DistributionGenerate
+from .rj import ReversibleJumpMove
+from .distgenrj import DistributionGenerateRJ
+from .group import GroupMove
+from .groupstretch import GroupStretchMove
+from .rbgroupstretch import RedBlueGroupStretchMove
+from .combine import CombineMove
+from .multipletry import MultipleTryMove, MultipleTryMoveRJ, get_mt_computations
+from .mtdistgen import MTDistGenMove
+from .mtdistgenrj import MTDistGenMoveRJ
+from .delayedrejection import DelayedRejection
+from .mala import MALAMove
+from .hmc import HMCMove
+from .chees import ChEESHMCMove
+from .aimh import AIMHMove
+from .de import DEMove, DESnookerMove
+from .walk import WalkMove
+from .kde import KDEMove
+from .slice import SliceMove
+from .modelswap import BasicSymmetricModelSwapRJMove, ModelSwapRJMove
 
 __all__ = [
     "Move",
@@ -12,121 +34,30 @@ __all__ = [
     "StretchMove",
     "TemperatureControl",
     "make_ladder",
+    "MHMove",
+    "GaussianMove",
+    "DistributionGenerate",
+    "ReversibleJumpMove",
+    "DistributionGenerateRJ",
+    "GroupMove",
+    "GroupStretchMove",
+    "RedBlueGroupStretchMove",
+    "CombineMove",
+    "MultipleTryMove",
+    "MultipleTryMoveRJ",
+    "MTDistGenMove",
+    "MTDistGenMoveRJ",
+    "get_mt_computations",
+    "DelayedRejection",
+    "MALAMove",
+    "HMCMove",
+    "ChEESHMCMove",
+    "AIMHMove",
+    "DEMove",
+    "DESnookerMove",
+    "WalkMove",
+    "KDEMove",
+    "SliceMove",
+    "ModelSwapRJMove",
+    "BasicSymmetricModelSwapRJMove",
 ]
-
-# moves added in later construction stages register themselves here
-try:  # pragma: no cover - staged build
-    from .mh import MHMove
-    from .gaussian import GaussianMove
-    from .distgen import DistributionGenerate
-
-    __all__ += ["MHMove", "GaussianMove", "DistributionGenerate"]
-except ImportError:  # pragma: no cover
-    pass
-
-try:  # pragma: no cover - staged build
-    from .rj import ReversibleJumpMove
-    from .distgenrj import DistributionGenerateRJ
-
-    __all__ += ["ReversibleJumpMove", "DistributionGenerateRJ"]
-except ImportError:  # pragma: no cover
-    pass
-
-try:  # pragma: no cover - staged build
-    from .group import GroupMove
-    from .groupstretch import GroupStretchMove
-    from .rbgroupstretch import RedBlueGroupStretchMove
-
-    __all__ += ["GroupMove", "GroupStretchMove", "RedBlueGroupStretchMove"]
-except ImportError:  # pragma: no cover
-    pass
-
-try:  # pragma: no cover - staged build
-    from .combine import CombineMove
-
-    __all__ += ["CombineMove"]
-except ImportError:  # pragma: no cover
-    pass
-
-try:  # pragma: no cover - staged build
-    from .multipletry import (
-        MultipleTryMove,
-        MultipleTryMoveRJ,
-        get_mt_computations,
-    )
-    from .mtdistgen import MTDistGenMove
-    from .mtdistgenrj import MTDistGenMoveRJ
-
-    __all__ += [
-        "MultipleTryMove",
-        "MultipleTryMoveRJ",
-        "MTDistGenMove",
-        "MTDistGenMoveRJ",
-        "get_mt_computations",
-    ]
-except ImportError:  # pragma: no cover
-    pass
-
-try:  # pragma: no cover - staged build
-    from .delayedrejection import DelayedRejection
-
-    __all__ += ["DelayedRejection"]
-except ImportError:  # pragma: no cover
-    pass
-
-try:
-    from .mala import MALAMove
-
-    __all__ += ["MALAMove"]
-except ImportError:  # pragma: no cover
-    pass
-
-try:
-    from .hmc import HMCMove
-
-    __all__ += ["HMCMove"]
-except ImportError:  # pragma: no cover
-    pass
-
-try:
-    from .chees import ChEESHMCMove
-
-    __all__ += ["ChEESHMCMove"]
-except ImportError:  # pragma: no cover
-    pass
-
-try:
-    from .aimh import AIMHMove
-
-    __all__ += ["AIMHMove"]
-except ImportError:  # pragma: no cover
-    pass
-
-try:
-    from .de import DEMove, DESnookerMove
-
-    __all__ += ["DEMove", "DESnookerMove"]
-except ImportError:  # pragma: no cover
-    pass
-
-try:
-    from .walk import WalkMove
-    from .kde import KDEMove
-
-    __all__ += ["WalkMove", "KDEMove"]
-except ImportError:  # pragma: no cover
-    pass
-
-try:
-    from .slice import SliceMove
-
-    __all__ += ["SliceMove"]
-except ImportError:  # pragma: no cover
-    pass
-
-try:
-    from .modelswap import BasicSymmetricModelSwapRJMove, ModelSwapRJMove
-
-    __all__ += ["ModelSwapRJMove", "BasicSymmetricModelSwapRJMove"]
-except ImportError:  # pragma: no cover
-    pass

@@ -104,8 +104,9 @@ class AIMHMove(Move):
         mean = x.mean(axis=1)  # (nt, D)
         d = x - mean[:, None, :]
         # HIGHEST: the fitted covariance feeds a Cholesky whose density
-        # must match the realized draws exactly — bf16 MXU accumulation
-        # would mis-specify the proposal density the Hastings factor uses
+        # must match the realized draws exactly — reduced-precision (bf16 or
+        # TF32) passes would mis-specify the proposal density the Hastings
+        # factor uses
         cov = (
             jnp.einsum(
                 "twi,twj->tij", d, d, precision=jax.lax.Precision.HIGHEST
@@ -190,9 +191,8 @@ class AIMHMove(Move):
     def _chisquare(self, key, shape, dtype):
         """chi-square(df) draws without ``jax.random.chisquare``.
 
-        JAX's gamma sampler is a rejection loop that serializes on TPU —
-        measured 6.5 ms/step for a (10, 100) draw, 43x the cost of the
-        ENTIRE rest of this move (83 us).  For integer ``df`` the exact
+        JAX's gamma sampler is a rejection loop (a while loop inside the
+        step, run until every lane accepts).  For integer ``df`` the exact
         decomposition chi2(df) = -2 sum log U_i (+ Z^2 for odd df) needs
         only ceil(df/2) uniforms and one normal: pure vector ops.
         Non-integer ``df`` keeps the library sampler."""

@@ -1,4 +1,4 @@
-"""ChEES-HMC — self-tuning trajectory lengths, the TPU-native NUTS.
+"""ChEES-HMC — self-tuning trajectory lengths, the lockstep-ensemble NUTS.
 
 No reference equivalent (the reference cannot take gradients through its
 NumPy likelihoods; see :mod:`eryn_tpu.moves.mala`).  NUTS — the usual

@@ -1,6 +1,6 @@
 """Sequential combination of moves inside one proposal.
 
-TPU-native re-design of ``/root/reference/src/eryn/moves/combine.py:16-135``:
+JAX re-design of ``/root/reference/src/eryn/moves/combine.py:16-135``:
 child kernels run back-to-back inside the same traced step (each with its own
 tempering epilogue, matching the reference), accepted counts summed.
 """
@@ -49,11 +49,6 @@ class CombineMove(Move):
                 m.temperature_control = self.temperature_control
             if m.periodic is None:
                 m.periodic = self.periodic
-            # children must MIRROR the sharding flag (not latch it): a
-            # nested StretchMove would otherwise engage its single-device
-            # pallas fast path on a mesh — or, latched True, lose it
-            # forever after one sharded run
-            m.sharding_active = getattr(self, "sharding_active", False)
             if hasattr(m, "propagate_wiring"):
                 m.propagate_wiring()
 

@@ -2,7 +2,7 @@
 
 The reference advertises ``DEMove`` / ``DESnookerMove`` only as commented-out
 imports (``/root/reference/src/eryn/moves/__init__.py:3-23``) — the classes do
-not exist there.  These are TPU-native implementations of the classic
+not exist there.  These are traced implementations of the classic
 ensemble proposals (ter Braak 2006; ter Braak & Vrugt 2008; the same moves
 emcee ships), built on the red/blue half-ensemble machinery
 (:class:`eryn_tpu.moves.red_blue.RedBlueMove`) so they compose with parallel

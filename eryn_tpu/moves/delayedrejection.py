@@ -1,6 +1,6 @@
 """Delayed-rejection MH (experimental, as in the reference).
 
-TPU-native re-design of
+JAX re-design of
 ``/root/reference/src/eryn/moves/delayedrejection.py:40-229``.  NOTE: the
 reference ships this move but keeps it unreachable from the RJ path
 (``rj.py:350-353`` raises NotImplementedError); this implementation follows

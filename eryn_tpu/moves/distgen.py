@@ -1,6 +1,6 @@
 """Independent distribution-draw MH move.
 
-TPU-native re-design of ``/root/reference/src/eryn/moves/distgen.py:14-104``:
+JAX re-design of ``/root/reference/src/eryn/moves/distgen.py:14-104``:
 new coordinates are drawn per leaf from a given per-branch distribution inside
 the traced kernel (keyed sampling), with detailed-balance factors
 ``+logq(old) - logq(new)`` summed over active leaves.

@@ -1,6 +1,6 @@
 """Metropolis move with Gaussian proposals.
 
-TPU-native re-design of ``/root/reference/src/eryn/moves/gaussian.py:38-195``.
+JAX re-design of ``/root/reference/src/eryn/moves/gaussian.py:38-195``.
 Covariance specs (scalar / diagonal / full per branch) are baked into static
 proposal parameters; the ``vector``/``random``/``sequential`` update modes are
 expressed as fused masked vector ops over the whole ensemble, with the
@@ -117,7 +117,11 @@ class GaussianMove(MHMove):
 
             noise = jax.random.normal(k_noise, coords.shape, dtype=coords.dtype)
             if prop.kind == "full":
-                dx = noise @ jnp.asarray(prop.chol, dtype=coords.dtype).T
+                dx = jnp.matmul(
+                    noise,
+                    jnp.asarray(prop.chol, dtype=coords.dtype).T,
+                    precision=jax.lax.Precision.HIGHEST,
+                )
             else:
                 dx = noise * jnp.asarray(prop.scale, dtype=coords.dtype)
 

@@ -1,6 +1,6 @@
 """Group proposals: stationary-complement ensemble moves.
 
-TPU-native re-design of ``/root/reference/src/eryn/moves/group.py:14-281``.
+JAX re-design of ``/root/reference/src/eryn/moves/group.py:14-281``.
 The stationary "friends" group (refreshed every ``n_iter_update`` iterations,
 using the pre-proposal state at the window boundary to preserve detailed
 balance) lives in the move's traced kernel state, so the whole group proposal
@@ -88,7 +88,7 @@ class GroupMove(Move):
         complement.  Abstract here, exactly as in the reference."""
         raise NotImplementedError(
             "GroupMove subclasses implement get_proposal (legacy host "
-            "protocol) or group_proposal_kernel (traced TPU protocol)."
+            "protocol) or group_proposal_kernel (traced protocol)."
         )
 
     get_proposal.__eryn_tpu_stock__ = True

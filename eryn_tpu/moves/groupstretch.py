@@ -1,6 +1,6 @@
 """Group stretch: affine-invariant stretch against a stationary complement.
 
-TPU-native re-design of
+JAX re-design of
 ``/root/reference/src/eryn/moves/groupstretch.py:15-120``.  The stretch math
 is shared with :class:`~eryn_tpu.moves.stretch.StretchMove`; the complement is
 drawn from the stationary friends table (kernel state) instead of the live

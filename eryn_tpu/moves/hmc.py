@@ -1,4 +1,4 @@
-"""Hamiltonian Monte Carlo move — a TPU-native extension.
+"""Hamiltonian Monte Carlo move — a JAX extension.
 
 No reference equivalent (see :mod:`eryn_tpu.moves.mala`): the leapfrog
 integrator differentiates the tempered log-posterior through the user's
@@ -33,7 +33,7 @@ class HMCMove(MALAMove):
             array}`` (per-parameter mass preconditioning).
         num_leapfrog: number of leapfrog steps per proposal.  A tuple
             ``(lo, hi)`` jitters the trajectory length uniformly per
-            proposal — the TPU-native answer to NUTS's resonance problem:
+            proposal — the lockstep-ensemble answer to NUTS's resonance problem:
             on a lockstep ensemble every walker waits for the deepest tree
             anyway, so randomizing the (shared) length gives NUTS's
             robustness to periodic orbits at a fixed, fully-batched cost

@@ -6,7 +6,7 @@ fit a Gaussian KDE to the complement half and propose *independent* draws
 from it.  Because the proposal does not depend on the current point, the
 detailed-balance factors are ``log q(s) - log q(q_new)``.
 
-TPU-native formulation: the KDE density at ``m`` points against ``nc``
+Formulation: the KDE density at ``m`` points against ``nc``
 kernels is an ``(m, nc)`` Mahalanobis-distance matrix — two batched
 matmuls against the whitening Cholesky factor — followed by a
 ``logsumexp`` over kernels; sampling is one categorical pick plus a
@@ -53,12 +53,15 @@ class KDEMove(RedBlueMove):
         ``(nt, nc, d)`` with whitening ``chol_inv`` ``(nt, d, d)``."""
         nc = kernels.shape[1]
         # whiten both sets: mahalanobis^2 = |W x - W mu|^2
-        xw = jnp.einsum("tmd,tde->tme", x, chol_inv)
-        kw = jnp.einsum("tnd,tde->tne", kernels, chol_inv)
+        # f32 matmuls default to reduced-precision passes (TF32 on a GPU);
+        # these values enter the Hastings factors, so ask for full f32
+        hi = jax.lax.Precision.HIGHEST
+        xw = jnp.einsum("tmd,tde->tme", x, chol_inv, precision=hi)
+        kw = jnp.einsum("tnd,tde->tne", kernels, chol_inv, precision=hi)
         # pairwise squared distances via the matmul expansion
         x2 = jnp.sum(xw**2, axis=-1)[:, :, None]
         k2 = jnp.sum(kw**2, axis=-1)[:, None, :]
-        cross = jnp.einsum("tme,tne->tmn", xw, kw)
+        cross = jnp.einsum("tme,tne->tmn", xw, kw, precision=hi)
         maha = x2 + k2 - 2.0 * cross
         logk = -0.5 * maha - 0.5 * logdet[:, None, None]
         logk = logk - 0.5 * d * jnp.log(2.0 * jnp.pi)

@@ -14,7 +14,7 @@ host-side NumPy hooks:
   (ref ``moves/group.py:50-96``, exercised by the reference's own test
   suite, ``/root/reference/tests/test_eryn.py:813-907``).
 
-The TPU-native kernels use different (traced) signatures, so these classes
+The compiled kernels use different (traced) signatures, so these classes
 cannot run inside the compiled segment.  This module executes the
 reference's *host protocol* for them — NumPy arrays, ``model.random``,
 mutable supplemental holders — one proposal at a time, between device

@@ -1,4 +1,4 @@
-"""Metropolis-adjusted Langevin (MALA) move — a TPU-native extension.
+"""Metropolis-adjusted Langevin (MALA) move — a JAX extension.
 
 No reference equivalent: the reference's NumPy likelihoods are opaque, so
 gradient-guided proposals are impossible there.  Here the likelihood and the

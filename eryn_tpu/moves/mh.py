@@ -1,6 +1,6 @@
 """Whole-ensemble Metropolis-Hastings skeleton.
 
-TPU-native re-design of ``/root/reference/src/eryn/moves/mh.py:16-193``: the
+JAX re-design of ``/root/reference/src/eryn/moves/mh.py:16-193``: the
 proposal, prior, likelihood, and accept/merge all operate on the full
 ``(ntemps, nwalkers)`` block in one traced pass.
 """
@@ -52,7 +52,7 @@ class MHMove(Move):
         bridge."""
         raise NotImplementedError(
             "MHMove subclasses implement get_proposal (legacy host "
-            "protocol) or get_proposal_kernel (traced TPU protocol)."
+            "protocol) or get_proposal_kernel (traced protocol)."
         )
 
     # abstract in the reference: only a USER definition flags host mode

@@ -17,7 +17,7 @@ detailed-balance ratio for symmetric model choice.  With uniform model
 priors the posterior model indicator then directly estimates Bayes factors:
 ``P(model k | data) = Z_k / sum_j Z_j``.
 
-TPU-native formulation: the model indicator is *implicit* in the leaf masks
+Formulation: the model indicator is *implicit* in the leaf masks
 (no extra integer state), the switch is a pair of static-shape mask flips,
 and all candidate bookkeeping is one-hot vector math over
 ``(ntemps, nwalkers, nmodels)`` — no per-walker control flow.

@@ -1,6 +1,6 @@
 """Move base class and proposal evaluation context.
 
-TPU-native re-design of ``/root/reference/src/eryn/moves/move.py:16-703``.
+JAX re-design of ``/root/reference/src/eryn/moves/move.py:16-703``.
 The reference ``Move`` mixes configuration, mutable counters, and array
 mutation helpers; here each move is a *static configuration shell* whose
 :meth:`propose_kernel` is a pure traced function
@@ -108,7 +108,7 @@ class Move:
             self.host_move = True
             self._legacy_family = "custom-propose"
         # API parity with the reference's device switch (ref move.py:98-111):
-        # on TPU everything runs on-device under jit, so the flag is inert
+        # everything runs on the JAX device under jit, so the flag is inert
         self.use_gpu = bool(kwargs.pop("use_gpu", False))
         self._initialize_branch_setup(gibbs_sampling_setup, is_rj=self.is_rj)
 
@@ -125,7 +125,7 @@ class Move:
     @property
     def xp(self):
         """Array namespace (ref ``move.py:98-111`` returns numpy/cupy; the
-        TPU build's arrays are jax.numpy)."""
+        compiled sampler's arrays are jax.numpy)."""
         import jax.numpy as jnp
 
         return jnp

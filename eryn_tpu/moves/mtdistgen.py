@@ -1,6 +1,6 @@
 """Multiple-try MH from a generating distribution.
 
-TPU-native re-design of ``/root/reference/src/eryn/moves/mtdistgen.py:7-137``:
+JAX re-design of ``/root/reference/src/eryn/moves/mtdistgen.py:7-137``:
 ``num_try`` candidate parameter vectors per walker are drawn from the given
 distribution, evaluated in one batched likelihood call (tries folded into the
 walker axis), importance-selected, and accepted against the auxiliary set.

@@ -1,6 +1,6 @@
 """Multiple-try reversible jump from a generating distribution.
 
-TPU-native re-design of
+JAX re-design of
 ``/root/reference/src/eryn/moves/mtdistgenrj.py:7-190`` +
 ``multipletry.py:597-776`` (the nested-RJ bookkeeping).  For every walker the
 kernel evaluates the "one-less-leaf" base state and ``num_try`` candidate
@@ -220,8 +220,8 @@ class MTDistGenMoveRJ(ReversibleJumpMove):
 
             # candidate leaves; deaths use the removed leaf as try 0
             tries = dist.sample(k_draw, (nt, nw, T)).astype(c.dtype)
-            # one-hot reduce over the leaf axis, not take_along_axis (the
-            # per-walker gather serializes on TPU; see distgenrj.py)
+            # one-hot reduce over the leaf axis, not take_along_axis (see
+            # distgenrj.py)
             at_slot = jnp.sum(
                 jnp.where(
                     slot_onehot[..., None], c, jnp.zeros((), c.dtype)

@@ -1,6 +1,6 @@
 """Multiple-try Metropolis machinery.
 
-TPU-native re-design of
+JAX re-design of
 ``/root/reference/src/eryn/moves/multipletry.py:25-776``.  The ``num_try``
 axis is just one more batch dimension: candidate generation, importance
 weighting (``logP - logq``), categorical selection, and the auxiliary

@@ -28,18 +28,15 @@ actually occupies.  Uniform selection over a fixed active set is
 symmetric between forward and reverse moves, so the standard stretch
 factors apply with ``N`` = the number of coordinates actually stretched.
 
-TPU design: the per-leaf masked-uniform complement choice is an
+Selection: the per-leaf masked-uniform complement choice is an
 inverse-CDF over the flattened ``(complement walker, leaf)`` axis — one
-``cumsum`` shared by every moving walker, then the (k+1)-th active entry
-selected by a one-hot MXU matmul: ``onehot = step(cs > k)`` differenced
-along the complement axis, ``c_sel = onehot @ c`` at ``HIGHEST``
-precision (exact 0/1 weights).  A batched ``searchsorted`` computes the
-same indices without materializing the ``(Q, M)`` pick tensor, but its
-scan-based binary search serializes on TPU — measured 1.8 ms/step vs
-0.30 ms for the matmul on the 10x200x8-leaf benchmark config — so the
-matmul is the default and ``searchsorted`` only backs off the memory
-cliff on very large ensembles (pick tensor > ~256 MB), where the
-relative overhead of the serial search is amortized by the big blocks.
+running count of active entries shared by every moving walker, then the
+(k+1)-th active entry picked either by an exact one-hot contraction
+(``onehot[q, m] = (cs[m] == k_q + 1)`` against the zeroed-inactive
+complement, at ``HIGHEST`` precision) or, once that ``(Q, M)`` pick tensor
+would exceed ``_ONEHOT_BYTES_LIMIT``, by a batched ``searchsorted`` plus
+``take_along_axis``.  Both select the same entry bit for bit
+(``tests/test_rbgroupstretch.py``).
 """
 
 from __future__ import annotations
@@ -105,50 +102,23 @@ class RedBlueGroupStretchMove(StretchMove):
             # inverse CDF over the flattened (walker, leaf) complement axis
             M = nc * nl
             Q = ns * nls
-            from ..ops.select_kernels import mask_cumsum, onehot_select, onehot_select_fits
+            from ..ops.select_kernels import mask_cumsum
 
             m = ci.reshape(nt, M).astype(dtype)
             cnt = m.sum(axis=-1)  # (nt,) active complement leaves
-            # (nt, M) nondecreasing running count; matmul formulation — the
-            # reduce-window lowering of cumsum costs ~10 us/call on v5e
+            # (nt, M) nondecreasing running count
             cs = mask_cumsum(m)
             uu = jax.random.uniform(kb, (nt, ns, nls), dtype=dtype)
             # k-th active entry, k exact in f32 (counts < 2^24)
             k = jnp.floor(uu * jnp.maximum(cnt, 1.0)[:, None, None])
             kq = k.reshape(nt, Q)
-            kernel_ok = (
-                jax.default_backend() == "tpu"
-                and not getattr(self, "sharding_active", False)
-                and self.use_pallas is not False
-                and onehot_select_fits(Q, M, dtype)
-            )
             onehot_fits_hbm = (
                 nt * Q * M * jnp.dtype(dtype).itemsize <= _ONEHOT_BYTES_LIMIT
             )
-            # path order (v5e-measured at the 10x200x8x3 benchmark shape):
-            # the XLA equality one-hot streams one nt*Q*M tensor but keeps
-            # every surrounding op in XLA-chosen layouts — 143 us/null-step
-            # vs 171 us with the VMEM kernel, whose custom-call forces
-            # default layouts and drags ~25 us/step of relayout copies into
-            # the step.  The kernel still wins when the one-hot tensor
-            # would blow the HBM budget (Q, M in the thousands), and
-            # ``use_pallas=True`` forces it for kernel tests.
-            use_fused = kernel_ok and (
-                self.use_pallas is True or not onehot_fits_hbm
-            )
-            if use_fused:
-                # fused VMEM kernel: identical selections, and the (Q, M)
-                # pick tensor never touches HBM
-                c_clean = jnp.where(
-                    ci[..., None], c, jnp.zeros((), dtype)
-                ).reshape(nt, M, nd)
-                c_sel = onehot_select(cs, kq, c_clean).reshape(
-                    nt, ns, nls, nd
-                )
-            elif onehot_fits_hbm:
+            if onehot_fits_hbm:
                 # smallest i with cs[i] > k is the unique ACTIVE row with
                 # running count cs == k+1 (k integer, counts exact in f32)
-                # -> exact one-hot weights -> MXU matmul selection.
+                # -> exact one-hot weights -> matmul selection.
                 # Inactive rows sharing that count match too, but their
                 # payload is zeroed below, so they add exact zeros.
                 onehot = (cs[:, None, :] == kq[:, :, None] + 1.0).astype(

@@ -1,6 +1,6 @@
 """Red/blue half-ensemble proposal machinery.
 
-TPU-native re-design of ``/root/reference/src/eryn/moves/red_blue.py:89-333``.
+JAX re-design of ``/root/reference/src/eryn/moves/red_blue.py:89-333``.
 The reference shuffles walker indices on the host and loops over ragged
 subsets with ``take_along_axis`` gathers; here one random permutation splits
 the walker axis into ``nsplits`` *static-size* contiguous blocks, and each
@@ -67,7 +67,7 @@ class RedBlueMove(Move):
         defining it runs through the legacy host bridge."""
         raise NotImplementedError(
             "RedBlueMove subclasses implement get_proposal (legacy host "
-            "protocol) or get_proposal_kernel (traced TPU protocol)."
+            "protocol) or get_proposal_kernel (traced protocol)."
         )
 
     # abstract in the reference: only a USER definition flags host mode
@@ -122,8 +122,8 @@ class RedBlueMove(Move):
                 perm = inv_perm = jnp.arange(nwalkers)
 
             # permuted layout: splits become STATIC contiguous blocks updated
-            # with dynamic_update_slice (TPU scatters are slow); one inverse
-            # gather per gibbs iteration restores walker order
+            # with dynamic_update_slice (no scatter); one inverse gather per
+            # gibbs iteration restores walker order
             coords_p = {n: coords[n][:, perm] for n in all_names}
             inds_p = {n: inds[n][:, perm] for n in all_names}
             logl_p = logl[:, perm]

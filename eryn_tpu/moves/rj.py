@@ -1,6 +1,6 @@
 """Reversible-jump (trans-dimensional) move skeleton.
 
-TPU-native re-design of ``/root/reference/src/eryn/moves/rj.py:14-388``.
+JAX re-design of ``/root/reference/src/eryn/moves/rj.py:14-388``.
 Births/deaths are pure flips of the static-shape leaf-activation masks; the
 reference's per-(temp, walker) Python loops picking leaf slots
 (``distgenrj.py:85-121``) become a masked gumbel-argmax, so the whole
@@ -119,7 +119,7 @@ class ReversibleJumpMove(Move):
         host bridge."""
         raise NotImplementedError(
             "ReversibleJumpMove subclasses implement get_proposal (legacy "
-            "host protocol) or get_proposal_kernel (traced TPU protocol)."
+            "host protocol) or get_proposal_kernel (traced protocol)."
         )
 
     get_proposal.__eryn_tpu_stock__ = True

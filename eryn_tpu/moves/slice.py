@@ -1,4 +1,4 @@
-"""Ensemble slice sampling — a TPU-native extension.
+"""Ensemble slice sampling — a JAX extension.
 
 No reference equivalent.  Implements the differential ensemble slice
 sampler of Karamanis & Beutler 2021 ("zeus", arXiv:2002.06212): each
@@ -9,7 +9,7 @@ Metropolis rejection) and the single scale ``mu`` self-tunes, so the move
 is tuning-free and mixes well on correlated targets where the stretch
 move stalls.
 
-TPU formulation.  The per-walker stepping-out / shrinkage recursions are
+Formulation.  The per-walker stepping-out / shrinkage recursions are
 data-dependent loops the reference ecosystem runs walker-by-walker in
 Python; here the whole half-ensemble runs them in lockstep —
 ``lax.while_loop`` over masked full-block likelihood evaluations, exiting

@@ -1,6 +1,6 @@
 """Goodman-Weare affine-invariant stretch move.
 
-TPU-native re-design of ``/root/reference/src/eryn/moves/stretch.py:103-231``.
+JAX re-design of ``/root/reference/src/eryn/moves/stretch.py:103-231``.
 The proposal is one fused vector expression over the whole
 ``(ntemps, Ns, nleaves_max, ndim)`` block: a single ``z`` draw per walker
 shared across branches, a random complement gather, a periodic-aware stretch,
@@ -13,11 +13,9 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ..ops.perm import invert_permutation
 import numpy as np
 
 from .red_blue import RedBlueMove
-from .tempering import tempered_log_likelihood
 
 __all__ = ["StretchMove"]
 
@@ -47,13 +45,11 @@ class StretchMove(RedBlueMove):
         a=2.0,
         return_gpu=False,
         random_seed=None,
-        use_pallas=None,
         use_log_proposal=False,
         **kwargs,
     ):
         super().__init__(**kwargs)
         self.a = float(a)
-        self.use_pallas = use_pallas
         self.use_log_proposal = bool(use_log_proposal)
 
     # ------------------------------------------------------------------
@@ -105,168 +101,6 @@ class StretchMove(RedBlueMove):
                 )[name]
             ).reshape(ntemps, Ns, nleaves_max, ndim_here)
         return temp
-
-    # ------------------------------------------------------------------
-    # fused TPU fast path
-    # ------------------------------------------------------------------
-    def _can_fuse(self, state):
-        if self.use_pallas is False:
-            return False
-        if self.use_pallas is None and jax.default_backend() != "tpu":
-            return False
-        if getattr(self, "sharding_active", False):
-            # fused kernels are single-device programs; on a sharded ensemble
-            # the XLA path partitions over the mesh instead
-            return False
-        # engage the fused kernels where launch overhead dominates (small and
-        # mid ensembles); at large nwalkers the general XLA path amortizes
-        # its op overhead and runs equally fast, without the one-hot matmul
-        # FLOPs (the propose kernel grids over temperatures, so the VMEM
-        # constraint is per temperature)
-        ntemps, nwalkers = state.log_like.shape
-        ns = nwalkers - nwalkers // 2
-        if ns * (nwalkers - ns) * 4 > 2**18:  # ~nwalkers <= 512
-            return False
-        return (
-            self.periodic is None
-            and self.gibbs_iterations == [None]
-            and state.blobs is None
-            and all(
-                s is None for s in state.branches_supplemental.values()
-            )
-            and self.nsplits == 2
-            and self.randomize_split
-            and type(self).get_proposal_kernel is StretchMove.get_proposal_kernel
-            and type(self).choose_c_vals is StretchMove.choose_c_vals
-            # the fused path never calls the setup() hook; a subclass
-            # overriding it must take the general path so the hook fires
-            and type(self).setup is RedBlueMove.setup
-            and self.run_branches(state) == list(state.branches.keys())
-        )
-
-    def _propose_impl(self, key, state, ctx, kernel_state=()):
-        if self._can_fuse(state):
-            return self._propose_impl_fused(key, state, ctx, kernel_state)
-        return super()._propose_impl(key, state, ctx, kernel_state)
-
-    def _propose_impl_fused(self, key, state, ctx, kernel_state=()):
-        """Two pallas launches per half (propose, accept+merge) bracketing
-        the XLA likelihood; branch blocks concatenated along the trailing
-        axis (see :mod:`eryn_tpu.ops.stretch_kernels`)."""
-        from ..ops.stretch_kernels import stretch_accept, stretch_propose
-
-        interpret = jax.default_backend() != "tpu"
-        names = list(state.branches.keys())
-        ntemps, nwalkers = state.log_like.shape
-        dtype = state.log_like.dtype
-
-        total_ndim = sum(
-            state.branches[n].nleaves_max * state.branches[n].ndim for n in names
-        )
-        if nwalkers < 2 * total_ndim and not self.live_dangerously:
-            raise RuntimeError(
-                "It is unadvisable to use a red-blue move with fewer walkers "
-                "than twice the number of dimensions. (set live_dangerously "
-                "to override)"
-            )
-
-        # flatten all branches into one (nt, nw, D) block
-        shapes = [
-            (n, state.branches[n].nleaves_max, state.branches[n].ndim)
-            for n in names
-        ]
-        X = jnp.concatenate(
-            [state.branches[n].coords.reshape(ntemps, nwalkers, -1) for n in names],
-            axis=-1,
-        )
-        inds = dict(state.branches_inds)
-        ndim_act = jnp.zeros((ntemps, nwalkers), dtype=dtype)
-        for n in names:
-            ndim_act = ndim_act + inds[n].sum(axis=-1) * state.branches[n].ndim
-
-        logl = state.log_like
-        logp = state.log_prior
-        betas = (
-            state.betas
-            if state.betas is not None
-            else jnp.ones((ntemps,), dtype=dtype)
-        )
-        accepted = jnp.zeros((ntemps, nwalkers), dtype=dtype)
-
-        key, kperm, ku = jax.random.split(key, 3)
-        perm = jax.random.permutation(kperm, nwalkers)
-        inv_perm = invert_permutation(perm)
-        n0 = nwalkers - nwalkers // 2
-        sizes = [n0, nwalkers - n0]
-        offsets = [0, n0]
-        # all per-step randomness in one draw
-        u_all = jax.random.uniform(ku, (2, 3, ntemps, nwalkers), dtype=dtype)
-
-        def q_to_branches(q, ns):
-            out = {}
-            off = 0
-            for n, nl, nd in shapes:
-                out[n] = q[..., off : off + nl * nd].reshape(ntemps, ns, nl, nd)
-                off += nl * nd
-            return out
-
-        # work in the permuted layout: halves are STATIC contiguous blocks,
-        # updated with dynamic_update_slice (TPU scatters are slow); one
-        # inverse gather restores walker order at the end
-        Xp = X[:, perm]
-        lolp = jnp.stack([logl, logp, ndim_act, accepted], axis=-1)[:, perm]
-        inds_p = {n: inds[n][:, perm] for n in names}
-
-        for half, (off, ns) in enumerate(zip(offsets, sizes)):
-            s_blk = Xp[:, off : off + ns]
-            c_blk = jnp.concatenate(
-                [Xp[:, :off], Xp[:, off + ns :]], axis=1
-            )
-            blk = lolp[:, off : off + ns]
-            u = u_all[half, :2, :, :ns]
-            q, factors = stretch_propose(
-                s_blk,
-                c_blk,
-                blk[..., 2],
-                u,
-                a=self.a,
-                interpret=interpret,
-                log_proposal=self.use_log_proposal,
-            )
-
-            q_branches = q_to_branches(q, ns)
-            inds_blk = {n: inds_p[n][:, off : off + ns] for n in names}
-            logp_new = ctx.compute_log_prior(q_branches, inds_blk)
-            logl_new, _ = ctx.compute_log_like(q_branches, inds_blk, logp_new)
-
-            coords_blk, logl_blk, logp_blk, acc = stretch_accept(
-                q,
-                s_blk,
-                logl_new,
-                logp_new,
-                blk[..., 0],
-                blk[..., 1],
-                factors,
-                betas,
-                u_all[half, 2, :, :ns],
-                interpret=interpret,
-            )
-
-            Xp = jax.lax.dynamic_update_slice_in_dim(Xp, coords_blk, off, axis=1)
-            new_blk = jnp.stack(
-                [logl_blk, logp_blk, blk[..., 2], acc], axis=-1
-            )
-            lolp = jax.lax.dynamic_update_slice_in_dim(lolp, new_blk, off, axis=1)
-
-        X = Xp[:, inv_perm]
-        out = lolp[:, inv_perm]
-        logl, logp, accepted = out[..., 0], out[..., 1], out[..., 3]
-
-        new_coords = q_to_branches(X, nwalkers)
-        new_state = state.replace(
-            coords=new_coords, inds=inds, log_like=logl, log_prior=logp
-        )
-        return new_state, accepted.astype(bool), kernel_state
 
     def adjust_factors(self, factors, ndims_old, ndims_new):
         """Gibbs dimension correction (ref ``stretch.py:55-72``):

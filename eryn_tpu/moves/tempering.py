@@ -1,6 +1,6 @@
 """Parallel-tempering engine: temperature ladder, swaps, and adaptation.
 
-TPU-native re-design of ``/root/reference/src/eryn/moves/tempering.py:10-649``
+JAX re-design of ``/root/reference/src/eryn/moves/tempering.py:10-649``
 (itself ptemcee-derived).  The reference implements the swap cascade as a
 sequential Python loop with in-place NumPy scatters; here the whole cascade is
 one traced function: each rung is a vectorized permuted compare-and-swap over
@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.perm import invert_permutation
+from ..ops.swap_cascade import swap_cascade
 
 __all__ = ["TemperatureControl", "make_ladder"]
 
@@ -104,6 +105,105 @@ def tempered_log_likelihood(logl, betas):
     return jnp.where(jnp.isnan(out), -jnp.inf, out)
 
 
+def _check_provenance_capacity(ntemps, nwalkers):
+    # provenance indices ride the f32 data channel and are exact only up to
+    # 2^24; beyond that the final gather would silently corrupt the ensemble
+    if ntemps * nwalkers >= 2**24:
+        raise ValueError(
+            f"swap cascade provenance is carried in float32 and supports "
+            f"at most 2**24 - 1 ensemble slots; got ntemps*nwalkers = "
+            f"{ntemps * nwalkers}."
+        )
+
+
+#: widest walker row for which the single-launch cascade kernel beat the
+#: XLA rung loop end to end on an H100 (measured at 100, 256 and 512
+#: walkers; at 1000 the one-SM kernel's memory parallelism falls behind)
+CASCADE_KERNEL_MAX_WALKERS = 512
+
+
+def _use_cascade_kernel(logl):
+    """The single-launch cascade kernel serves float32 ensembles on a GPU
+    up to ``CASCADE_KERNEL_MAX_WALKERS``; everything else runs the XLA rung
+    loop (bitwise the same result)."""
+    return (
+        jax.default_backend() == "gpu"
+        and logl.dtype == jnp.float32
+        and logl.shape[1] <= CASCADE_KERNEL_MAX_WALKERS
+    )
+
+
+def cascade_draws(key, ntemps, nwalkers, dtype, permute=True):
+    """All randomness of one stochastic swap cascade, in two fused draws.
+
+    Returns ``(perms, inv_perms, raccept)``: per-rung uniform walker
+    permutations ``perms[i - 1] = (iperm, i1perm)`` shaped
+    ``(ntemps - 1, 2, nwalkers)`` (a batched argsort of iid uniforms), their
+    inverses, and the log acceptance thresholds ``(ntemps - 1, nwalkers)``
+    — the reference's two permutations and one uniform per rung
+    (ref ``tempering.py:506-522``)."""
+    k_perm, k_acc = jax.random.split(key)
+    if permute:
+        perms = jnp.argsort(
+            jax.random.uniform(k_perm, (ntemps - 1, 2, nwalkers)), axis=-1
+        )
+    else:
+        perms = jnp.broadcast_to(
+            jnp.arange(nwalkers), (ntemps - 1, 2, nwalkers)
+        )
+    inv_perms = invert_permutation(perms)
+    raccept = jnp.log(
+        jax.random.uniform(k_acc, (ntemps - 1, nwalkers), dtype=dtype)
+    )
+    return perms, inv_perms, raccept
+
+
+def cascade_provenance(logl, betas, perms, inv_perms, raccept):
+    """Sequential highest -> lowest rung cascade over ``logl`` alone.
+
+    Rung ``i`` pairs walker ``perms[i-1, 0, j]`` with walker
+    ``perms[i-1, 1, j]`` of rung ``i - 1`` and swaps them where
+    ``(betas[i-1] - betas[i]) * (logl_i - logl_{i-1}) > raccept[i-1, j]``
+    (ref ``tempering.py:484-561``).  Only the ``(ntemps, nwalkers)``
+    log-likelihoods and a flat provenance index ride the loop; the caller
+    moves the heavy state with one gather by the returned provenance.
+
+    Returns:
+        ``(logl, flat, swaps_accepted)``: swapped log-likelihoods, the
+        int32 ``(ntemps * nwalkers,)`` source slot of every output slot,
+        and the ``(ntemps - 1,)`` accepted-swap counts.
+    """
+    ntemps, nwalkers = logl.shape
+    # carry (logl, provenance) as one stacked array: provenance indices
+    # stay exact in f32 up to 2^24 entries (f64 carries exact to 2^53)
+    if jnp.dtype(logl.dtype).itemsize <= 4:
+        _check_provenance_capacity(ntemps, nwalkers)
+    origin0 = jnp.arange(ntemps * nwalkers, dtype=logl.dtype).reshape(
+        ntemps, nwalkers
+    )
+    data = jnp.stack([logl, origin0], axis=-1)  # (ntemps, nwalkers, 2)
+    swaps_accepted = jnp.zeros((ntemps - 1,), dtype=logl.dtype)
+
+    for i in range(ntemps - 1, 0, -1):
+        dbeta = betas[i - 1] - betas[i]
+        di = data[i][perms[i - 1, 0]]  # (nwalkers, 2)
+        di1 = data[i - 1][perms[i - 1, 1]]
+        paccept = dbeta * (di[:, 0] - di1[:, 0])
+        sel = (paccept > raccept[i - 1])[:, None]
+        swaps_accepted = swaps_accepted.at[i - 1].set(
+            sel.sum().astype(logl.dtype)
+        )
+        # the pairwise exchange as gathers through the inverse permutations
+        # plus full-row updates (no scatter)
+        new_i = jnp.where(sel, di1, di)[inv_perms[i - 1, 0]]
+        new_i1 = jnp.where(sel, di, di1)[inv_perms[i - 1, 1]]
+        data = data.at[i].set(new_i)
+        data = data.at[i - 1].set(new_i1)
+
+    flat = data[..., 1].astype(jnp.int32).reshape(-1)
+    return data[..., 0], flat, swaps_accepted
+
+
 class TemperatureControl:
     """PT configuration + traced swap/adaptation kernels.
 
@@ -128,7 +228,6 @@ class TemperatureControl:
         stop_adaptation=-1,
         permute=True,
         skip_swap_supp_names=(),
-        use_pallas=None,
         swap_scheme="cascade",
         adaptation_scheme="vousden",
     ):
@@ -146,7 +245,6 @@ class TemperatureControl:
         self.skip_swap_supp_names = list(skip_swap_supp_names)
 
         self.time = 0
-        self.use_pallas = use_pallas
         if swap_scheme not in ("cascade", "deo"):
             raise ValueError(
                 f"swap_scheme must be 'cascade' or 'deo', got {swap_scheme!r}."
@@ -216,11 +314,11 @@ class TemperatureControl:
         ``swap_scheme="deo"``, one deterministic even-odd parity sweep
         (ref ``tempering.py:484-561`` for the cascade the default mirrors).
 
-        TPU-native formulation: the sequential rung cascade only needs the
-        ``(ntemps, nwalkers)`` log-likelihood matrix, so the loop swaps
-        ``logl`` plus a flat *provenance index*; the heavy state tree
-        (coords, masks, priors, blobs) is exchanged with a single fused
-        gather at the end instead of per-rung scatters.
+        The sequential rung cascade only needs the ``(ntemps, nwalkers)``
+        log-likelihood matrix, so the loop swaps ``logl`` plus a flat
+        *provenance index* (:func:`cascade_provenance`); the heavy state
+        tree (coords, masks, priors, blobs) is exchanged with a single
+        fused gather at the end instead of per-rung scatters.
 
         Args:
             key: PRNG key.
@@ -233,9 +331,8 @@ class TemperatureControl:
         Returns:
             ``(swap_tree, logl, swaps_accepted, swaps_proposed)`` with
             ``swaps_accepted``/``swaps_proposed`` shaped ``(ntemps - 1,)``
-            (``swaps_proposed`` is ``nwalkers`` per rung except for the
-            large-ensemble rolled pallas variant, which skips pairs whose
-            rotated partner lands on a pad lane).
+            (``swaps_proposed`` is ``nwalkers`` per rung for the cascade;
+            DEO proposes zero on the boundaries it does not attempt).
         """
         ntemps, nwalkers = logl.shape
         swaps_accepted = jnp.zeros((max(ntemps - 1, 0),), dtype=logl.dtype)
@@ -250,18 +347,6 @@ class TemperatureControl:
                 time = jnp.asarray(int(self.time), dtype=jnp.int32)
             return self._swap_kernel_deo(key, swap_tree, logl, betas, time)
 
-        use_pallas = self.use_pallas
-        if use_pallas is None:
-            # pt_swap_cascade dispatches internally: exact one-hot matmul
-            # rotations for small ensembles, lane-aligned rolled variant for
-            # large ones; sharded ensembles take the XLA path (the cascade
-            # lowers to permutation collectives over the mesh)
-            use_pallas = jax.default_backend() == "tpu" and not getattr(
-                self, "sharding_active", False
-            )
-        if use_pallas and self.permute:
-            return self._swap_kernel_pallas(key, swap_tree, logl, betas)
-
         if getattr(self, "sharding_active", False):
             # the provenance+gather formulation below applies the composed
             # permutation with a data-dependent gather over the flattened
@@ -269,60 +354,24 @@ class TemperatureControl:
             # ALL-GATHER of the whole ensemble every step — route to the
             # boundary-local variant (same draws, same math, bitwise
             # identical results; traffic is one adjacent-rung payload row
-            # per boundary, riding collective-permutes over ICI)
+            # per boundary, riding collective-permutes between devices)
             return self._swap_kernel_cascade_boundary(
                 key, swap_tree, logl, betas
             )
 
-        # all cascade randomness in two fused draws; batched argsort of iid
-        # uniforms == per-rung uniform random permutations
-        k_perm, k_acc = jax.random.split(key)
-        if self.permute:
-            perms = jnp.argsort(
-                jax.random.uniform(k_perm, (ntemps - 1, 2, nwalkers)), axis=-1
+        perms, inv_perms, raccept = cascade_draws(
+            key, ntemps, nwalkers, logl.dtype, self.permute
+        )
+        if _use_cascade_kernel(logl):
+            # one launch for the whole rung loop (bitwise the same result;
+            # the kernel scatters through perms, so inv_perms goes unused)
+            logl, flat, swaps_accepted = swap_cascade(
+                logl, betas[:-1] - betas[1:], perms, raccept
             )
         else:
-            perms = jnp.broadcast_to(
-                jnp.arange(nwalkers), (ntemps - 1, 2, nwalkers)
+            logl, flat, swaps_accepted = cascade_provenance(
+                logl, betas, perms, inv_perms, raccept
             )
-        inv_perms = invert_permutation(perms)
-        raccept = jnp.log(
-            jax.random.uniform(k_acc, (ntemps - 1, nwalkers), dtype=logl.dtype)
-        )
-
-        # carry (logl, provenance) as one stacked array: provenance indices
-        # stay exact in f32 up to 2^24 entries — enforce it (the pallas
-        # path checks the same bound inside pt_swap)
-        from ..ops.pt_swap import _check_provenance_capacity
-
-        if jnp.dtype(logl.dtype).itemsize <= 4:  # f64 carries exact to 2^53
-            _check_provenance_capacity(ntemps, nwalkers)
-        origin0 = jnp.arange(ntemps * nwalkers, dtype=logl.dtype).reshape(
-            ntemps, nwalkers
-        )
-        data = jnp.stack([logl, origin0], axis=-1)  # (ntemps, nwalkers, 2)
-
-        for i in range(ntemps - 1, 0, -1):
-            dbeta = betas[i - 1] - betas[i]
-            iperm = perms[i - 1, 0]
-            i1perm = perms[i - 1, 1]
-
-            di = data[i][iperm]  # (nwalkers, 2)
-            di1 = data[i - 1][i1perm]
-            paccept = dbeta * (di[:, 0] - di1[:, 0])
-            sel = (paccept > raccept[i - 1])[:, None]
-            swaps_accepted = swaps_accepted.at[i - 1].set(
-                sel.sum().astype(logl.dtype)
-            )
-            # permutation scatters are TPU-slow; invert them into gathers +
-            # full-row dynamic updates instead
-            new_i = jnp.where(sel, di1, di)[inv_perms[i - 1, 0]]
-            new_i1 = jnp.where(sel, di, di1)[inv_perms[i - 1, 1]]
-            data = data.at[i].set(new_i)
-            data = data.at[i - 1].set(new_i1)
-
-        logl = data[..., 0]
-        flat = data[..., 1].astype(jnp.int32).reshape(-1)
 
         def gather_leaf(x):
             return x.reshape((ntemps * nwalkers,) + x.shape[2:])[flat].reshape(
@@ -417,19 +466,8 @@ class TemperatureControl:
         dtype = logl.dtype
         swaps_proposed = jnp.full((ntemps - 1,), nwalkers, dtype=dtype)
 
-        k_perm, k_acc = jax.random.split(key)
-        if self.permute:
-            perms = jnp.argsort(
-                jax.random.uniform(k_perm, (ntemps - 1, 2, nwalkers)),
-                axis=-1,
-            )
-        else:
-            perms = jnp.broadcast_to(
-                jnp.arange(nwalkers), (ntemps - 1, 2, nwalkers)
-            )
-        inv_perms = invert_permutation(perms)
-        raccept = jnp.log(
-            jax.random.uniform(k_acc, (ntemps - 1, nwalkers), dtype=dtype)
+        perms, inv_perms, raccept = cascade_draws(
+            key, ntemps, nwalkers, dtype, self.permute
         )
 
         accepted = []
@@ -460,152 +498,6 @@ class TemperatureControl:
         logl, swap_tree = tree
         swaps_accepted = jnp.stack(accepted[::-1])
         return swap_tree, logl, swaps_accepted, swaps_proposed
-
-    def _try_pack_channels(self, swap_tree, logl):
-        """Pack the swap tree into ``(ntemps, D, nwalkers)`` float channels
-        for the zero-gather payload cascade, or return ``None`` when a leaf
-        cannot ride a float32 channel exactly (f64 chains, unbounded int
-        supplementals) or the packed block would blow the VMEM budget."""
-        from ..ops.pt_swap import PAYLOAD_VMEM_BUDGET, ROLLED_THRESHOLD
-
-        dtype = logl.dtype
-        if dtype != jnp.float32:
-            return None
-        ntemps, nwalkers = logl.shape
-        leaves_with_path, treedef = jax.tree_util.tree_flatten_with_path(
-            swap_tree
-        )
-        D = 0
-        for path, leaf in leaves_with_path:
-            if leaf.shape[:2] != (ntemps, nwalkers):
-                return None
-            if leaf.dtype == jnp.bool_:
-                pass
-            elif jnp.issubdtype(leaf.dtype, jnp.integer):
-                # only the sampler's provenance index is known to be
-                # bounded (< ntemps * nwalkers); arbitrary user int
-                # supplementals could exceed f32's exact-integer range
-                if "__prov__" not in str(path[-1]) or (
-                    ntemps * nwalkers >= 2**24
-                ):
-                    return None
-            elif leaf.dtype != dtype:
-                return None
-            D += int(np.prod(leaf.shape[2:])) if leaf.ndim > 2 else 1
-        nwpad = (
-            -(-nwalkers // 128) * 128
-            if nwalkers > ROLLED_THRESHOLD
-            else nwalkers
-        )
-        if ntemps * (2 + D) * nwpad * 4 > PAYLOAD_VMEM_BUDGET:
-            return None
-
-        chans = []
-        for path, leaf in leaves_with_path:
-            flat = leaf.reshape(ntemps, nwalkers, -1).astype(dtype)
-            chans.append(jnp.moveaxis(flat, -1, 1))  # (nt, k, nw)
-        channels = jnp.concatenate(chans, axis=1)
-
-        def unpack(channels_out):
-            out_leaves = []
-            off = 0
-            for path, leaf in leaves_with_path:
-                k = int(np.prod(leaf.shape[2:])) if leaf.ndim > 2 else 1
-                sl = jnp.moveaxis(channels_out[:, off : off + k], 1, -1)
-                off += k
-                arr = sl.reshape(leaf.shape)
-                if leaf.dtype == jnp.bool_:
-                    arr = arr > 0.5
-                elif jnp.issubdtype(leaf.dtype, jnp.integer):
-                    arr = arr.astype(leaf.dtype)  # exact integers in f32
-                out_leaves.append(arr)
-            return jax.tree_util.tree_unflatten(treedef, out_leaves)
-
-        return channels, unpack
-
-    def _swap_kernel_pallas(self, key, swap_tree, logl, betas, interpret=False):
-        """Single-kernel cascade: the whole rung loop runs in VMEM
-        (see :mod:`eryn_tpu.ops.pt_swap`).  A fresh uniform relabeling of the
-        walker axis per cascade composes with per-rung random rotations to
-        randomize swap partners (statistically equivalent to the reference's
-        per-rung permutations).
-
-        Two formulations, picked by payload size:
-
-        * **payload cascade** (default): the packed state rides the kernel's
-          VMEM channels and the walker relabeling is applied with exact
-          one-hot matmuls — no global row gather anywhere (a (ntemps *
-          nwalkers)-row gather is latency-bound at ~27 ns/row and dominated
-          the whole PT epilogue at scale);
-        * **provenance cascade** (fallback for oversized/f64/unbounded-int
-          payloads): cascade a provenance index, then apply the composed
-          permutation with one gather.
-        """
-        from ..ops.pt_swap import (
-            proposals_per_rung,
-            pt_swap_cascade,
-            pt_swap_cascade_multi,
-        )
-
-        ntemps, nwalkers = logl.shape
-        k_pi, k_shift, k_acc = jax.random.split(key, 3)
-        pi = jax.random.permutation(k_pi, nwalkers)
-        inv_pi = invert_permutation(pi)
-
-        dbetas = betas[:-1] - betas[1:]
-        shifts = jax.random.randint(k_shift, (ntemps - 1,), 0, nwalkers)
-        raccept = jnp.log(
-            jax.random.uniform(k_acc, (ntemps - 1, nwalkers), dtype=logl.dtype)
-        )
-
-        packed = self._try_pack_channels(swap_tree, logl)
-        if packed is not None:
-            channels, unpack = packed
-            # E[v, w] = 1 iff v == pi[w]: X @ E relabels the walker axis
-            # (X @ E)[..., w] = X[..., pi[w]]; permutation matrices invert
-            # by transpose.  Exact for f32 payload values under HIGHEST.
-            E = jax.nn.one_hot(pi, nwalkers, dtype=logl.dtype, axis=0)
-
-            def relabel(x, mat):
-                return jnp.matmul(
-                    x, mat, precision=jax.lax.Precision.HIGHEST
-                )
-
-            logl_res, channels_res, sel = pt_swap_cascade_multi(
-                relabel(logl, E),
-                relabel(channels, E),
-                dbetas,
-                shifts,
-                raccept,
-                interpret=interpret,
-            )
-            logl_new = relabel(logl_res, E.T)
-            swap_tree = unpack(relabel(channels_res, E.T))
-        else:
-            logl_p = logl[:, pi]
-            # provenance initialized with TRUE original flat indices
-            origin0 = (
-                jnp.arange(ntemps, dtype=logl.dtype)[:, None] * nwalkers
-                + pi[None, :].astype(logl.dtype)
-            )
-            logl_res, origin_res, sel = pt_swap_cascade(
-                logl_p, origin0, dbetas, shifts, raccept, interpret=interpret
-            )
-            logl_new = logl_res[:, inv_pi]
-            flat = origin_res[:, inv_pi].astype(jnp.int32).reshape(-1)
-
-            def gather_leaf(x):
-                return x.reshape(
-                    (ntemps * nwalkers,) + x.shape[2:]
-                )[flat].reshape(x.shape)
-
-            swap_tree = jax.tree_util.tree_map(gather_leaf, swap_tree)
-
-        swaps_accepted = sel.sum(axis=-1).astype(logl.dtype)
-        # the rolled cascade skips pairings whose partner is a pad lane;
-        # the pad/pairing rule lives next to the kernels so it cannot desync
-        swaps_proposed = proposals_per_rung(nwalkers, shifts, logl.dtype)
-        return swap_tree, logl_new, swaps_accepted, swaps_proposed
 
     def ladder_adjustment_kernel(self, time, betas, ratios):
         """Traced ladder adjustment per arXiv:1501.05823
@@ -760,13 +652,16 @@ class TemperatureControl:
                 "the override's signature and forward it to super().",
                 stacklevel=2,
             )
-        swap_tree, logl, swaps_accepted, swaps_proposed = self.swap_kernel(
-            key, swap_tree, state.log_like, state.betas, **sk_kwargs
-        )
+        # stable scope name: profiler traces attribute the swap phase's
+        # device kernels by it
+        with jax.named_scope("pt_swap"):
+            swap_tree, logl, swaps_accepted, swaps_proposed = self.swap_kernel(
+                key, swap_tree, state.log_like, state.betas, **sk_kwargs
+            )
         # every consumer outside this kernel (backend accumulation, the
         # swap_acceptance_fraction property, plots, host adapt_temps)
         # normalizes by nwalkers proposals per rung; rescale counts from
-        # cascades that proposed fewer pairings (the rolled pallas variant)
+        # swap kernels that proposed fewer pairings (a subclass override)
         # so those ratios stay unbiased.  DEO attempts each boundary on
         # exactly every other phase (deterministic alternation), so its
         # per-phase ratios are doubled: time-averaged statistics (backend

@@ -7,9 +7,9 @@ the complement's deviations from their mean,
 
     ``q = s + sum_j z_j (c_j - c_mean)``,  ``z_j ~ N(0, 1)``,
 
-which is symmetric (factors = 0) and affine-invariant.  On TPU the whole
+which is symmetric (factors = 0) and affine-invariant.  The whole
 half-ensemble update is one batched matmul ``Z @ (C - C_mean)`` over
-``(ntemps, ns, nc) x (ntemps, nc, D)`` — MXU work, no per-walker loops.
+``(ntemps, ns, nc) x (ntemps, nc, D)`` — no per-walker loops.
 
 ``s0`` restricts each walker's combination to a random subset of the
 complement (Bernoulli mask with mean size ``s0``, still symmetric); the
@@ -81,9 +81,18 @@ class WalkMove(RedBlueMove):
             else:
                 flat = c.reshape(nt, nc, nl * nd)
                 dev = flat - flat.mean(axis=1, keepdims=True)
-            # (nt, ns, nc) @ (nt, nc, D) -> (nt, ns, D): the MXU does the
-            # whole half-ensemble update in one batched matmul
-            step = jnp.einsum("tsc,tcd->tsd", z, dev) * scale
+            # (nt, ns, nc) @ (nt, nc, D) -> (nt, ns, D): the whole
+            # half-ensemble update in one batched matmul, at full f32
+            # precision (the default may round operands to TF32/bf16)
+            step = (
+                jnp.einsum(
+                    "tsc,tcd->tsd",
+                    z,
+                    dev,
+                    precision=jax.lax.Precision.HIGHEST,
+                )
+                * scale
+            )
             q = s + step.reshape(ntemps, ns, nl, nd)
             if self.periodic is not None:
                 q = self.periodic.wrap({name: q})[name]

@@ -1,1 +1,1 @@
-"""Low-level compute kernels (masked choice, segment reductions, pallas)."""
+"""Low-level helpers (permutations, masked counts) and the GPU swap-cascade kernel."""

@@ -1,11 +1,11 @@
 """Permutation utilities for the traced hot path.
 
-TPU-first note: ``jnp.argsort(perm)`` — the obvious way to invert a
-permutation — lowers to a full bitonic sort (~3 us at n=200 on v5e,
-serial and latency-bound inside the step scan).  Inverting a permutation
-needs no sort: it is a one-hot contraction that XLA lowers to a single
-small reduce fusion (<1 us).  Integer arithmetic throughout, so the
-result is exactly ``argsort(perm)`` bit for bit.
+``jnp.argsort(perm)`` — the obvious way to invert a permutation — is a
+full sort.  Inverting a permutation needs no sort: it is a one-hot
+contraction that XLA lowers to one reduce fusion, ``O(n^2)`` work that is
+cheap at small ``n`` (which of the two is faster on the GPU at each size
+is an open measurement).  Integer arithmetic throughout, so the result is
+exactly ``argsort(perm)`` bit for bit.
 
 (The permutation DRAW itself — sorting random u32 keys — is left alone:
 that sort defines the sampled permutation, and replacing it would change

@@ -1,77 +1,32 @@
-"""Fused masked-uniform selection kernels.
+"""Masked-selection helpers for the RJ-correct group-stretch move.
 
-The RJ-correct group-stretch move (:mod:`eryn_tpu.moves.rbgroupstretch`)
-selects, for every active leaf of a moving walker, a uniformly random
-ACTIVE leaf of the complement half: an inverse-CDF over the flattened
-``(complement walker, leaf)`` axis.  The exact formulation is a one-hot
-selection — ``onehot[q, m] = (cs[m] == k_q + 1)`` marks the unique
-ACTIVE index whose running active count first exceeds the (integer)
-draw; inactive rows sharing the count match too, but their payload is
-pre-zeroed, so the contraction against the complement coordinates stays
-exact (see ``rbgroupstretch.get_proposal_kernel``).
-
-Computed in XLA, the ``(ntemps, Q, M)`` one-hot tensor is materialized
-in HBM (~25 MB per half-update at the LISA benchmark shape, 10 temps,
-Q = M = 800) — affordable there, and the all-XLA step keeps every
-surrounding op in XLA-chosen layouts.  At larger shapes that tensor
-grows quadratically; this kernel fuses compare -> multiply -> reduce in
-VMEM so only the ``O(M + Q)`` operands and the ``(Q, nd)`` result ever
-touch HBM; the pick tensor lives and dies on-chip.  The move picks the
-XLA path while the tensor fits an HBM budget and the kernel beyond it
-(``rbgroupstretch.py`` documents the v5e measurements).
-
-Exactness contract: bitwise-identical selections to the XLA one-hot path
-and the gather/searchsorted fallback (``tests/test_rbgroupstretch.py``).
-
-No reference analogue: the reference's group moves gather on the host
-(``/root/reference/src/eryn/moves/groupstretch.py:29-75``); this kernel
-exists because the TPU formulation is bandwidth-bound, not because the
-reference has one.
+:mod:`eryn_tpu.moves.rbgroupstretch` selects, for every active leaf of a
+moving walker, a uniformly random ACTIVE leaf of the complement half: an
+inverse-CDF over the flattened ``(complement walker, leaf)`` axis, driven
+by the running count of active entries computed here.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-__all__ = ["onehot_select", "onehot_select_fits", "mask_cumsum"]
-
-# per-program VMEM ceiling for the (Qb, M) compare/one-hot tiles: three
-# live f32 tiles plus operands, kept well under the 16 MB/core budget
-_VMEM_TILE_BUDGET = 6 * 1024 * 1024
-_MAX_M = 16384
+__all__ = ["mask_cumsum"]
 
 
 def _round_up(x, mult):
     return -(-x // mult) * mult
 
 
-def onehot_select_fits(Q, M, dtype):
-    """Whether the fused kernel supports/fits this selection shape."""
-    if jnp.dtype(dtype) != jnp.float32:
-        return False
-    Mp = _round_up(M, 128)
-    if Mp > _MAX_M:
-        return False
-    # smallest query block must fit three (Qb, Mp) f32 tiles
-    return 3 * 128 * Mp * 4 <= _VMEM_TILE_BUDGET
-
-
 def mask_cumsum(m):
     """Inclusive cumsum of a 0/1 activity mask along the last axis, exact,
     without ``reduce-window``.
 
-    ``jnp.cumsum`` lowers to hierarchical ``reduce-window`` ops that
-    measure ~10 us per call at ``(10, 800)`` on v5e — serial-ish window
-    sliding for what is integer counting.  This formulation is two tiny
-    matmuls: within-128-block prefix sums against a triangular matrix and
-    a block-offset correction.  Every operand is an exact small integer
-    (mask 0/1, block totals <= 128, offsets < 2^24), so DEFAULT (bf16,
-    f32-accumulate) matmul precision is exact and one MXU pass suffices.
+    ``jnp.cumsum`` lowers to hierarchical ``reduce-window`` ops; this
+    formulation is two small matmuls instead: within-128-block prefix sums
+    against a triangular matrix and a block-offset correction.  Every
+    operand is an exact small integer (mask 0/1, block totals <= 128) and
+    every sum an integer below 2^24 accumulated in f32, so DEFAULT matmul
+    precision is exact even where it rounds operands to bf16 or TF32.
 
     Args:
         m: ``(nt, M)`` float 0/1 mask.
@@ -99,113 +54,3 @@ def mask_cumsum(m):
     offsets = jnp.matmul(totals, off_tri)  # (nt, nb)
     cs = within + offsets[..., None]
     return cs.reshape(nt, Mp)[:, :M]
-
-
-def _select_kernel(nd, cs_ref, kq_ref, c_ref, out_ref):
-    # blocks: cs (1, 1, Mp), kq (1, 1, Qb), c (1, nd, Mp), out (1, Qb, nd);
-    # everything stays in VMEM.
-    #
-    # The weights use a count-EQUALITY formulation rather than the
-    # differenced step function (gt - gt_shifted) the XLA paths document:
-    # the (k+1)-th active entry is the unique ACTIVE row with running
-    # count cs == k+1 (k integer-valued, counts < 2^24 exact in f32).
-    # Inactive rows inside/after that run share the same count, but the
-    # payload is pre-zeroed on inactive rows, so their matches add exact
-    # zeros and the lane-sum still reproduces the selected value bitwise.
-    # This drops one full (Qb, Mp) compare, the subtract, and the whole
-    # shifted-count operand (its HBM stream and XLA-side concat+pad).
-    #
-    # Two more deliberate, v5e-measured choices:
-    # * the contraction runs on the VPU as a lane reduction, NOT the MXU —
-    #   a (Qb, Mp) @ (Mp, nd) dot pads nd up to 128 lanes and (at HIGHEST)
-    #   runs 6 passes, slower than the XLA path it replaces.  With the
-    #   nonzero weights all landing on one finite value plus exact zeros,
-    #   multiply + lane-sum is exact in any accumulation order;
-    # * kq arrives in its NATURAL (nt, Q) layout (lanes-minor) and is
-    #   transposed here — the in-VMEM transpose is a register shuffle,
-    #   while feeding a pre-transposed (nt, Qp, 1) shape costs an XLA
-    #   relayout copy in HBM per call.  The same trick applied to c was
-    #   measured SLOWER (the (Mp, nd)->(nd, Mp) transpose is not free once
-    #   Mp spans multiple lane tiles), so c stays pre-swapped outside.
-    cs = cs_ref[0]  # (1, Mp)
-    k1 = jnp.transpose(kq_ref[0]) + 1.0  # (1, Qb) -> (Qb, 1), then k+1
-    dtype = c_ref.dtype
-    onehot = (cs == k1).astype(dtype)  # (Qb, Mp)
-    ct = c_ref[0]  # (nd, Mp)
-    cols = [
-        jnp.sum(onehot * ct[d : d + 1, :], axis=1, keepdims=True)
-        for d in range(nd)
-    ]
-    out_ref[0] = (
-        cols[0] if nd == 1 else jnp.concatenate(cols, axis=1)
-    )  # (Qb, nd)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def onehot_select(cs, kq, c_clean, interpret=False):
-    """Select ``c_clean[argmin_m cs[m] > k]`` for every query, fused.
-
-    Args:
-        cs: ``(nt, M)`` nondecreasing per-temperature running counts
-            (``cumsum`` of the 0/1 activity mask).
-        kq: ``(nt, Q)`` query draws; selects the smallest ``m`` with
-            ``cs[m] > kq`` (the ``(k+1)``-th active entry).
-        c_clean: ``(nt, M, nd)`` payload rows, inactive rows zeroed.
-
-    Returns:
-        ``(nt, Q, nd)`` selected payload rows, bitwise identical to the
-        XLA one-hot formulation.
-    """
-    nt, M = cs.shape
-    Q = kq.shape[1]
-    nd = c_clean.shape[-1]
-    dtype = c_clean.dtype
-
-    Mp = _round_up(M, 128)
-    # pick the largest query block whose tiles respect the VMEM budget
-    Qb = 512
-    while Qb > 128 and 3 * Qb * Mp * 4 > _VMEM_TILE_BUDGET:
-        Qb //= 2
-    Qp = _round_up(Q, Qb)
-
-    if Mp != M:
-        # pad with the final count: padded rows may match cs == k+1, but
-        # their payload is padded to zero, so they add exact zeros
-        tail = jnp.broadcast_to(cs[:, -1:], (nt, Mp - M))
-        cs = jnp.concatenate([cs, tail], axis=1)
-        c_clean = jnp.concatenate(
-            [c_clean, jnp.zeros((nt, Mp - M, nd), dtype)], axis=1
-        )
-    if Qp != Q:
-        # k = -1 -> k+1 = 0, which matches only rows BEFORE the first
-        # active one — zero payload — and the rows are sliced off anyway
-        kq = jnp.concatenate(
-            [kq, jnp.full((nt, Qp - Q), -1.0, dtype)], axis=1
-        )
-
-    out = pl.pallas_call(
-        functools.partial(_select_kernel, nd),
-        grid=(nt, Qp // Qb),
-        out_shape=jax.ShapeDtypeStruct((nt, Qp, nd), dtype),
-        in_specs=[
-            pl.BlockSpec(
-                (1, 1, Mp), lambda i, j: (i, 0, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, 1, Qb), lambda i, j: (i, 0, j), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, nd, Mp), lambda i, j: (i, 0, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, Qb, nd), lambda i, j: (i, j, 0), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret,
-    )(
-        cs.reshape(nt, 1, Mp),
-        kq.reshape(nt, 1, Qp),
-        jnp.swapaxes(c_clean, 1, 2),
-    )
-    return out[:, :Q]
-

@@ -1,12 +1,12 @@
-"""Multi-chip scaling for the ensemble sampler.
+"""Multi-device scaling for the ensemble sampler.
 
 The reference's parallelism is ``pool.map`` likelihood fan-out plus a single
 CuPy device (``/root/reference/src/eryn/ensemble.py:119-122,1474-1481``).  The
-TPU-native answer: shard the ``(ntemps, nwalkers)`` ensemble axes of the whole
+answer here: shard the ``(ntemps, nwalkers)`` ensemble axes of the whole
 ``State`` pytree over a ``jax.sharding.Mesh`` and jit the identical step
 function — XLA inserts the collectives (the temperature-swap cascade becomes
-permutation traffic over ICI; red/blue complement gathers become all-to-alls
-over the walker axis).
+collective-permute traffic between devices; red/blue complement gathers
+become all-to-alls over the walker axis).
 """
 
 from __future__ import annotations

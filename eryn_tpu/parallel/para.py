@@ -1,8 +1,8 @@
-"""Batched independent sub-ensembles (the TPU-native ParaState runner).
+"""Batched independent sub-ensembles (the ParaState runner).
 
 The reference defines ``ParaState`` with a ``groups_running`` mask for
 ensembles of independent sub-runs but ships no runner for it
-(``/root/reference/src/eryn/state.py:588-775``, unused in-tree).  On TPU the
+(``/root/reference/src/eryn/state.py:588-775``, unused in-tree).  The
 natural realization is ``vmap``: one compiled sampler step mapped over a
 leading ``ngroups`` axis, so hundreds of independent PT ensembles (e.g. one
 per data segment, or one per initialization) advance in a single device
@@ -64,11 +64,7 @@ class ParaEnsembleSampler:
                     f"group-mesh size ({axis_sizes[0]})."
                 )
             self._group_axis = tuple(mesh.shape.keys())[0]
-        # pallas kernels under vmap are avoided for robustness; the XLA swap
-        # path vectorizes cleanly over the group axis
         tempering_kwargs = dict(kwargs.pop("tempering_kwargs", {}) or {})
-        if tempering_kwargs:
-            tempering_kwargs.setdefault("use_pallas", False)
         if "backend" in kwargs:
             # silently dropping a backend would lose the user's chain file
             raise ValueError(
@@ -86,15 +82,6 @@ class ParaEnsembleSampler:
             **kwargs,
         )
 
-        def _disable_pallas(moves):
-            for move in moves:
-                if hasattr(move, "use_pallas"):
-                    move.use_pallas = False
-                # recurse into CombineMove children: a nested StretchMove
-                # would otherwise keep its pallas path under vmap
-                _disable_pallas(getattr(move, "moves", []) or [])
-
-        _disable_pallas(self.sampler.moves + self.sampler.rj_moves)
         if seed is None:
             seed = int(np.random.randint(0, 2**31 - 1))
         self._keys = jax.random.split(

@@ -1,6 +1,6 @@
 """Prior distributions and the :class:`ProbDistContainer`.
 
-TPU-native re-design of ``/root/reference/src/eryn/prior.py:12-497``.  Every
+JAX re-design of ``/root/reference/src/eryn/prior.py:12-497``.  Every
 distribution exposes two sampling paths:
 
 * the Eryn-compatible host path ``rvs(size=...)`` (NumPy RNG, used for
@@ -164,7 +164,7 @@ class LogUniformDistribution(JaxDistribution):
 
 
 class NormalDistribution(JaxDistribution):
-    """Scalar normal distribution (TPU-native extension; the reference relies
+    """Scalar normal distribution (extension; the reference relies
     on ``scipy.stats.norm`` duck-typing)."""
 
     def __init__(self, loc=0.0, scale=1.0):
@@ -210,13 +210,21 @@ class MultivariateNormalDistribution(JaxDistribution):
     def logpdf(self, x):
         x = jnp.asarray(x)
         diff = x - self.mean
-        maha = jnp.einsum("...i,ij,...j->...", diff, self._inv, diff)
+        maha = jnp.einsum(
+            "...i,ij,...j->...",
+            diff,
+            self._inv,
+            diff,
+            precision=jax.lax.Precision.HIGHEST,
+        )
         k = self.ndim
         return -0.5 * (maha + k * jnp.log(2 * jnp.pi) + self._logdet)
 
     def sample(self, key, shape=()):
         z = jax.random.normal(key, tuple(shape) + (self.ndim,))
-        return self.mean + z @ self._chol.T
+        return self.mean + jnp.matmul(
+            z, self._chol.T, precision=jax.lax.Precision.HIGHEST
+        )
 
 
 def uniform_dist(min, max, use_cupy=False, return_gpu=False):

@@ -1,6 +1,6 @@
 """Ensemble state containers as JAX pytrees.
 
-TPU-native re-design of the reference state layer
+JAX re-design of the reference state layer
 (``/root/reference/src/eryn/state.py:16-775``).  The reference keeps mutable
 NumPy/CuPy arrays inside plain Python objects; here every container is a
 registered, immutable pytree of fixed-shape ``jax.Array`` leaves so a whole

@@ -14,7 +14,16 @@ from .utility import (
 
 from scipy.special import logsumexp  # noqa: F401  (re-exported like the ref)
 
+from .plot import PlotContainer
 from .profiling import SegmentTimer, trace_profile
+from .stopping import AutoCorrelationStop, SearchConvergeStopping, Stopping
+from .transform import TransformContainer
+from .updates import (
+    AdjustStretchProposalScale,
+    CompositeUpdate,
+    Update,
+    UpdateStep,
+)
 
 __all__ = [
     "PeriodicContainer",
@@ -29,32 +38,14 @@ __all__ = [
     "psrf",
     "effective_sample_size",
     "rank_normalized_rhat",
+    "TransformContainer",
+    "Stopping",
+    "SearchConvergeStopping",
+    "AutoCorrelationStop",
+    "Update",
+    "CompositeUpdate",
+    "UpdateStep",
+    "AdjustStretchProposalScale",
+    "PlotContainer",
 ]
 
-try:  # pragma: no cover - staged build
-    from .transform import TransformContainer
-
-    __all__ += ["TransformContainer"]
-except ImportError:  # pragma: no cover
-    pass
-
-try:  # pragma: no cover - staged build
-    from .stopping import AutoCorrelationStop, SearchConvergeStopping, Stopping
-
-    __all__ += ["Stopping", "SearchConvergeStopping", "AutoCorrelationStop"]
-except ImportError:  # pragma: no cover
-    pass
-
-try:  # pragma: no cover - staged build
-    from .updates import Update, CompositeUpdate, UpdateStep, AdjustStretchProposalScale
-
-    __all__ += ["Update", "CompositeUpdate", "UpdateStep", "AdjustStretchProposalScale"]
-except ImportError:  # pragma: no cover
-    pass
-
-try:  # pragma: no cover - staged build
-    from .plot import PlotContainer
-
-    __all__ += ["PlotContainer"]
-except ImportError:  # pragma: no cover
-    pass

@@ -1,6 +1,6 @@
 """Periodic-parameter handling.
 
-TPU-native re-design of ``/root/reference/src/eryn/utils/periodic.py:11-151``.
+JAX re-design of ``/root/reference/src/eryn/utils/periodic.py:11-151``.
 Instead of per-parameter Python loops over index dictionaries, each branch's
 periods are baked into a dense ``(ndim,)`` vector (non-periodic entries hold
 ``inf``) so distance/wrap are single fused vector ops over the whole

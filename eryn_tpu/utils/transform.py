@@ -1,6 +1,6 @@
 """Parameter-basis transformations.
 
-TPU-native re-design of ``/root/reference/src/eryn/utils/transform.py:10-239``.
+JAX re-design of ``/root/reference/src/eryn/utils/transform.py:10-239``.
 Functionally identical API (``transform_base_parameters``, ``fill_values``,
 ``both_transforms``) but implemented with functional column ops so the same
 container works on NumPy arrays (host) and inside jitted likelihood wrappers

@@ -148,7 +148,7 @@ class AdjustStretchProposalScale(Update):
             if change != 1.0:
                 sampler.moves[0].a *= change
                 # recompile with the new scale (skipped when nothing moved:
-                # a cleared step cache costs a full ~10-40 s TPU recompile)
+                # a cleared step cache costs a full recompile)
                 sampler._step_cache.clear()
             if self.verbose:
                 print(mean_af, change, sampler.moves[0].a)

@@ -1,6 +1,6 @@
 """Runtime diagnostic plotting, mirroring the reference's
 ``examples/plotting_example.py`` / ``plotting_rj_example.py`` workflow on
-the TPU-native sampler: a PT run plus an RJ pulse search, with the full
+the compiled sampler: a PT run plus an RJ pulse search, with the full
 `PlotContainer` family written to ``./plots_out``.
 
 Run: ``python examples/runtime_plots.py``

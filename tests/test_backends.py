@@ -481,7 +481,7 @@ def _import_reference_eryn():
 def test_reference_reads_our_file(priors, tmp_path):
     """REVERSE interop: a chain file written by eryn_tpu opens under the
     live reference ``HDFBackend`` — every getter agrees numerically — and a
-    reference ``EnsembleSampler`` resumes it (VERDICT r4 missing #1).
+    reference ``EnsembleSampler`` resumes it.
 
     The resume leg uses a 1-D model: the reference cannot resume ANY
     multi-D file — including its own — because its key_order check compares

@@ -1,4 +1,4 @@
-"""ChEES-HMC (TPU-native self-tuning trajectory lengths, the NUTS
+"""ChEES-HMC (self-tuning trajectory lengths, the NUTS
 alternative designed for SIMD ensembles)."""
 
 import numpy as np

@@ -143,7 +143,6 @@ def test_boundary_cascade_bitwise_matches_provenance_cascade():
     rng = np.random.default_rng(0)
     betas0 = np.geomspace(1, 1e-2, nt)
     tc = TemperatureControl(betas=betas0, nwalkers=nw)
-    tc.use_pallas = False
     key = jax.random.key(5)
     logl = jnp.asarray(rng.standard_normal((nt, nw)).astype(np.float32))
     tree = {

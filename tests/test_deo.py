@@ -2,7 +2,7 @@
 
 Syed et al. 2021: alternating disjoint parity classes of rung pairs give
 replicas ballistic ladder traversal — and a fully parallel swap phase
-(no sequential cascade), the natural TPU formulation.
+(no sequential cascade), the natural lockstep formulation.
 """
 
 import numpy as np

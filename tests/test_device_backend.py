@@ -323,10 +323,10 @@ def test_default_backend_is_device_on_accelerator(priors, monkeypatch):
     s_cpu = EnsembleSampler(NWALKERS, NDIM, log_like, priors, seed=0)
     assert type(s_cpu.backend) is Backend
 
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-    s_tpu = EnsembleSampler(NWALKERS, NDIM, log_like, priors, seed=0)
-    assert isinstance(s_tpu.backend, DeviceBackend)
-    assert s_tpu.backend.max_device_bytes == 4 << 30
+    monkeypatch.setattr(_jax, "default_backend", lambda: "gpu")
+    s_gpu = EnsembleSampler(NWALKERS, NDIM, log_like, priors, seed=0)
+    assert isinstance(s_gpu.backend, DeviceBackend)
+    assert s_gpu.backend.max_device_bytes == 4 << 30
     # explicit backend always wins
     s_exp = EnsembleSampler(
         NWALKERS, NDIM, log_like, priors, backend=Backend(), seed=0

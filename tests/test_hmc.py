@@ -1,4 +1,4 @@
-"""HMC move (TPU-native extension: leapfrog via lax.scan over jax.grad)."""
+"""HMC move (extension: leapfrog via lax.scan over jax.grad)."""
 
 import numpy as np
 import pytest

@@ -1,4 +1,4 @@
-"""MALA move (TPU-native extension: jax.grad through the traced model)."""
+"""MALA move (extension: jax.grad through the traced model)."""
 
 import numpy as np
 import pytest

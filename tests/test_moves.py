@@ -127,19 +127,6 @@ def test_distgen_gibbs_mask_factors_unbiased(priors):
     assert np.abs(chain.std(axis=0) - 1.0).max() < 0.15
 
 
-def test_combine_propagates_sharding_flag():
-    """Regression: CombineMove children must inherit sharding_active so a
-    nested StretchMove cannot engage the single-device pallas path on a
-    sharded ensemble."""
-    from eryn_tpu.moves import CombineMove, StretchMove
-
-    child = StretchMove()
-    combo = CombineMove([child])
-    combo.sharding_active = True
-    combo.propagate_wiring()
-    assert getattr(child, "sharding_active", False)
-
-
 def test_gaussian_move_rejects_bad_covariance():
     with pytest.raises(ValueError, match="positive"):
         GaussianMove({"model_0": -1.0})
@@ -180,19 +167,6 @@ def test_distgen_mask_splitting_mvn_group_raises(priors):
         ens.run_mcmc(0.1 * np.random.randn(NWALKERS, NDIM), 2)
 
 
-def test_combine_sharding_flag_mirrors_parent():
-    from eryn_tpu.moves import CombineMove, StretchMove
-
-    child = StretchMove()
-    combo = CombineMove([child])
-    combo.sharding_active = True
-    combo.propagate_wiring()
-    assert child.sharding_active
-    combo.sharding_active = False
-    combo.propagate_wiring()
-    assert not child.sharding_active  # un-latched for single-device reuse
-
-
 def test_stretch_log_proposal(priors):
     """Reference roadmap item (ref docs/source/general/todos.rst): the
     ptemcee log-uniform scaling density, with a measured comparison against
@@ -230,42 +204,3 @@ def test_stretch_log_proposal_factor_exponent():
     a = move_log.a
     assert np.all((z_log >= 1 / a - 1e-6) & (z_log <= a + 1e-6))
     assert np.all((z_gw >= 1 / a - 1e-6) & (z_gw <= a + 1e-6))
-
-
-@pytest.mark.parametrize("log_proposal", [False, True])
-def test_fused_stretch_propose_matches_formula(log_proposal):
-    """The pallas propose kernel (interpret mode on CPU) reproduces the
-    closed-form stretch for both scaling densities."""
-    from eryn_tpu.ops.stretch_kernels import stretch_propose
-
-    rng = np.random.default_rng(0)
-    nt, ns, nc, D, a = 2, 8, 8, 4, 2.0
-    s = rng.standard_normal((nt, ns, D)).astype(np.float32)
-    c = rng.standard_normal((nt, nc, D)).astype(np.float32)
-    ndim_act = rng.integers(1, D + 1, (nt, ns)).astype(np.float32)
-    u = rng.random((2, nt, ns)).astype(np.float32)
-
-    q, fac = stretch_propose(
-        jnp.asarray(s),
-        jnp.asarray(c),
-        jnp.asarray(ndim_act),
-        jnp.asarray(u),
-        a=a,
-        interpret=True,
-        log_proposal=log_proposal,
-    )
-
-    if log_proposal:
-        zz = np.exp((2.0 * u[0] - 1.0) * np.log(a))
-        expect_fac = ndim_act * np.log(zz)
-    else:
-        zz = ((a - 1.0) * u[0] + 1.0) ** 2 / a
-        expect_fac = (ndim_act - 1.0) * np.log(zz)
-    rint = np.floor(u[1] * nc).astype(int)
-    c_pick = np.take_along_axis(c, rint[:, :, None], axis=1)
-    expect_q = c_pick - (c_pick - s) * zz[:, :, None]
-
-    np.testing.assert_allclose(np.asarray(q), expect_q, rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(
-        np.asarray(fac), expect_fac, rtol=2e-5, atol=2e-5
-    )

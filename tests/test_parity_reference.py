@@ -302,10 +302,7 @@ def test_rj_matches_quadrature_truth():
 
 def test_make_ladder_parity():
     """Temperature ladders match the reference's exactly."""
-    from _refpath import REFERENCE_SRC
-
-    sys.path.insert(0, REFERENCE_SRC)
-    sys.modules.setdefault("corner", types.ModuleType("corner"))
+    _import_reference()  # skips where the reference is not importable
     from eryn.moves.tempering import make_ladder as ref_make_ladder
 
     from eryn_tpu.moves import make_ladder

@@ -1,5 +1,9 @@
-"""Correctness of the fused pallas swap-cascade kernel (interpret mode on
-CPU) against a direct NumPy simulation of the same pairing."""
+"""The stochastic PT swap cascade — the XLA rung loop and the
+single-launch Pallas kernel (interpret mode here) — against a NumPy
+implementation of the reference's two-permutation cascade
+(ref ``tempering.py:484-561``), given the same per-rung permutations and
+acceptance draws; and the kernel's wrapper: CUDA lowering, shape guard and
+the choice between the two."""
 
 import numpy as np
 import pytest
@@ -7,146 +11,79 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from eryn_tpu.ops.pt_swap import pt_swap_cascade
+from eryn_tpu.moves import tempering
+from eryn_tpu.moves.tempering import (
+    TemperatureControl,
+    cascade_draws,
+    cascade_provenance,
+)
+from eryn_tpu.ops.swap_cascade import MAX_WALKERS, swap_cascade
+
+SHAPES = [(2, 8), (3, 17), (5, 64), (10, 100), (8, 203), (20, 50)]
 
 
-def _numpy_cascade(logl, origin, dbetas, shifts, raccept):
+def _numpy_cascade(logl, tree, betas, perms, raccept):
+    """The reference's in-place cascade: rung ``i`` pairs ``perms[i-1, 0]``
+    with ``perms[i-1, 1]`` of rung ``i - 1`` and scatter-swaps the accepted
+    pairs of every array."""
     logl = logl.copy()
-    origin = origin.copy()
-    ntemps, nw = logl.shape
-    sel_out = np.zeros((ntemps - 1, nw))
+    tree = {k: v.copy() for k, v in tree.items()}
+    ntemps = logl.shape[0]
+    accepted = np.zeros(ntemps - 1)
     for i in range(ntemps - 1, 0, -1):
-        s = shifts[i - 1]
-        partner = (np.arange(nw) + s) % nw
-        pacc = dbetas[i - 1] * (logl[i] - logl[i - 1, partner])
-        sel = pacc > raccept[i - 1]
-        sel_out[i - 1] = sel
-        li = logl[i].copy()
-        oi = origin[i].copy()
-        logl[i, sel] = logl[i - 1, partner[sel]]
-        origin[i, sel] = origin[i - 1, partner[sel]]
-        logl[i - 1, partner[sel]] = li[sel]
-        origin[i - 1, partner[sel]] = oi[sel]
-    return logl, origin, sel_out
+        iperm, i1perm = perms[i - 1]
+        dbeta = betas[i - 1] - betas[i]
+        paccept = dbeta * (logl[i, iperm] - logl[i - 1, i1perm])
+        sel = paccept > raccept[i - 1]
+        accepted[i - 1] = sel.sum()
+        a, b = iperm[sel], i1perm[sel]
+        for arr in [logl, *tree.values()]:
+            hi = arr[i, a].copy()
+            arr[i, a] = arr[i - 1, b]
+            arr[i - 1, b] = hi
+    return logl, tree, accepted
 
 
-def test_cascade_kernel_matches_numpy():
-    rng = np.random.default_rng(0)
-    ntemps, nw = 6, 37
-    logl = rng.standard_normal((ntemps, nw)).astype(np.float32) * 10
-    origin = np.arange(ntemps * nw, dtype=np.float32).reshape(ntemps, nw)
-    betas = np.logspace(0, -2, ntemps).astype(np.float32)
-    dbetas = betas[:-1] - betas[1:]
-    shifts = rng.integers(0, nw, size=ntemps - 1).astype(np.int32)
-    raccept = np.log(rng.uniform(size=(ntemps - 1, nw))).astype(np.float32)
-
-    out_l, out_o, sel = pt_swap_cascade(
-        jnp.asarray(logl),
-        jnp.asarray(origin),
-        jnp.asarray(dbetas),
-        jnp.asarray(shifts),
-        jnp.asarray(raccept),
-        interpret=True,
-    )
-    exp_l, exp_o, exp_sel = _numpy_cascade(logl, origin, dbetas, shifts, raccept)
-
-    np.testing.assert_allclose(np.asarray(out_l), exp_l, rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(out_o), exp_o)
-    np.testing.assert_array_equal(np.asarray(sel), exp_sel)
-
-    # provenance is a permutation: gathering the input logl by it reproduces
-    # the swapped logl
-    flat = np.asarray(out_o).astype(int).reshape(-1)
-    assert sorted(flat) == list(range(ntemps * nw))
-    np.testing.assert_allclose(
-        logl.reshape(-1)[flat].reshape(ntemps, nw), np.asarray(out_l), rtol=1e-6
-    )
-
-
-def test_pallas_path_statistics():
-    """The pallas temper path gives the same swap statistics as the XLA
-    path (run via interpret mode on CPU)."""
-    from eryn_tpu import EnsembleSampler, ProbDistContainer, uniform_dist
-    from eryn_tpu.moves.tempering import TemperatureControl
-    from eryn_tpu.state import State
-
-    ntemps, nw = 6, 64
-    rng = np.random.default_rng(1)
-    tc = TemperatureControl(5, nw, ntemps=ntemps, adaptive=False)
-
-    logl = jnp.asarray(rng.standard_normal((ntemps, nw)) * 5.0)
-    state = State(
-        {"model_0": jnp.asarray(rng.standard_normal((ntemps, nw, 1, 3)))},
-        log_like=logl,
-        log_prior=jnp.zeros((ntemps, nw)),
-        betas=jnp.asarray(tc.betas),
-    )
-
-    n_rep = 200
-    accs = {"xla": [], "pallas": []}
-    for mode in ("xla", "pallas"):
-        for r in range(n_rep):
-            key = jax.random.PRNGKey(r)
-            if mode == "xla":
-                tc.use_pallas = False
-                _, swaps, _ = tc.temper_kernel(
-                    key, state, jnp.zeros((), jnp.int32), adapt=False
-                )
-            else:
-                tree = {
-                    "coords": state.branches_coords,
-                    "inds": state.branches_inds,
-                    "log_prior": state.log_prior,
-                }
-                _, _, swaps, _prop = tc._swap_kernel_pallas(
-                    key, tree, state.log_like, state.betas, interpret=True
-                )
-            accs[mode].append(np.asarray(swaps))
-    mean_xla = np.mean(accs["xla"], axis=0) / nw
-    mean_pallas = np.mean(accs["pallas"], axis=0) / nw
-    # same expected per-rung swap acceptance
-    np.testing.assert_allclose(mean_pallas, mean_xla, atol=0.05)
-
-
-def test_rolled_swaps_proposed_counts():
-    """The pallas swap path must report the true number of proposed pairings
-    per rung (rolled variant skips pairs whose partner lands on a pad lane),
-    so ladder adaptation ratios are unbiased."""
-    from eryn_tpu.moves.tempering import TemperatureControl
-    from eryn_tpu.state import State
-
-    ntemps, nw = 4, 650  # pads to 768: ~15% of naive pairings invalid
-    rng = np.random.default_rng(7)
-    tc = TemperatureControl(5, nw, ntemps=ntemps, adaptive=False)
-    state_tree = {
-        "coords": {"m": jnp.asarray(rng.standard_normal((ntemps, nw, 1, 2)))},
-        "inds": {"m": jnp.ones((ntemps, nw, 1), bool)},
-        "log_prior": jnp.zeros((ntemps, nw)),
+@pytest.mark.parametrize("ntemps,nwalkers", SHAPES)
+def test_cascade_matches_numpy_reference(ntemps, nwalkers):
+    rng = np.random.default_rng(ntemps * 1000 + nwalkers)
+    tc = TemperatureControl(5, nwalkers, ntemps=ntemps, adaptive=False)
+    betas = np.asarray(tc.betas, np.float32)
+    logl = (rng.standard_normal((ntemps, nwalkers)) * 3.0).astype(np.float32)
+    tree = {
+        "coords": rng.standard_normal((ntemps, nwalkers, 2, 3)).astype(
+            np.float32
+        ),
+        "inds": rng.random((ntemps, nwalkers, 2)) < 0.5,
     }
-    logl = jnp.asarray(
-        rng.standard_normal((ntemps, nw)).astype(np.float32) * 5.0
+    key = jax.random.PRNGKey(ntemps + nwalkers)
+
+    perms, _, raccept = cascade_draws(key, ntemps, nwalkers, jnp.float32)
+    exp_logl, exp_tree, exp_acc = _numpy_cascade(
+        logl, tree, betas, np.asarray(perms), np.asarray(raccept)
     )
-    tc.use_pallas = True
-    _, _, acc, prop = jax.jit(
-        lambda k: tc._swap_kernel_pallas(
-            k, state_tree, logl, jnp.asarray(tc.betas, jnp.float32),
-            interpret=True,
-        )
-    )(jax.random.PRNGKey(3))
-    prop = np.asarray(prop)
-    acc = np.asarray(acc)
-    nwpad = 768
-    # every rung proposes at most nw and at least nw - pad pairings
-    assert np.all(prop <= nw) and np.all(prop >= nw - (nwpad - nw))
-    assert np.all(acc <= prop)
+    # the swap phase must actually exchange something at these temperatures
+    assert exp_acc.sum() > 0
+
+    out_tree, out_logl, acc, prop = tc.swap_kernel(
+        key,
+        {k: jnp.asarray(v) for k, v in tree.items()},
+        jnp.asarray(logl),
+        jnp.asarray(betas),
+    )
+    np.testing.assert_array_equal(np.asarray(out_logl), exp_logl)
+    np.testing.assert_array_equal(np.asarray(acc), exp_acc)
+    np.testing.assert_array_equal(np.asarray(prop), nwalkers)
+    for k in tree:
+        np.testing.assert_array_equal(np.asarray(out_tree[k]), exp_tree[k])
 
 
 def test_temper_kernel_rescales_partial_proposal_counts():
     """Regression: every consumer outside temper_kernel (backend counters,
     swap_acceptance_fraction, plots, host adapt_temps) divides the returned
-    swap counts by nwalkers.  When the cascade proposes fewer pairings per
-    rung (the rolled pallas variant skips pad-lane partners), the returned
-    counts must be rescaled so those ratios stay unbiased."""
+    swap counts by nwalkers.  When a swap kernel proposes fewer pairings per
+    rung (a subclass override), the returned counts must be rescaled so
+    those ratios stay unbiased."""
     from eryn_tpu.moves.tempering import TemperatureControl
     from eryn_tpu.state import State
 
@@ -188,159 +125,136 @@ def test_make_ladder_validation():
 
 
 def test_provenance_capacity_guard():
+    nt, nw = 2**15, 2**10
+    perms = jax.ShapeDtypeStruct((nt - 1, 2, nw), jnp.int32)
     with pytest.raises(ValueError, match="2\\*\\*24"):
-        pt_swap_cascade(
-            jnp.zeros((2**15, 2**10), jnp.float32),
-            jnp.zeros((2**15, 2**10), jnp.float32),
-            jnp.zeros((2**15 - 1,), jnp.float32),
-            jnp.zeros((2**15 - 1,), jnp.int32),
-            jnp.zeros((2**15 - 1, 2**10), jnp.float32),
+        jax.eval_shape(
+            cascade_provenance,
+            jax.ShapeDtypeStruct((nt, nw), jnp.float32),
+            jax.ShapeDtypeStruct((nt,), jnp.float32),
+            perms,
+            perms,
+            jax.ShapeDtypeStruct((nt - 1, nw), jnp.float32),
         )
 
 
-def _numpy_cascade_rolled(logl, origin, dbetas, shifts, raccept, nwpad):
-    nt, nw = logl.shape
-    pad = nwpad - nw
-    L = np.concatenate([logl, np.zeros((nt, pad), logl.dtype)], axis=1)
-    O = np.concatenate([origin, np.zeros((nt, pad), origin.dtype)], axis=1)
-    V = np.concatenate(
-        [np.ones((nt, nw), bool), np.zeros((nt, pad), bool)], axis=1
+def _inputs(ntemps, nwalkers, seed):
+    rng = np.random.default_rng(seed)
+    betas = np.asarray(
+        TemperatureControl(5, nwalkers, ntemps=ntemps).betas, np.float32
     )
-    R = np.concatenate(
-        [raccept, np.full((nt - 1, pad), np.inf, raccept.dtype)], axis=1
+    logl = (rng.standard_normal((ntemps, nwalkers)) * 3.0).astype(np.float32)
+    perms, inv_perms, raccept = cascade_draws(
+        jax.random.PRNGKey(seed), ntemps, nwalkers, jnp.float32
     )
-    sel_out = np.zeros((nt - 1, nwpad))
-    for i in range(nt - 1, 0, -1):
-        s = shifts[i - 1]
-        partner = (np.arange(nwpad) + s) % nwpad
-        pacc = dbetas[i - 1] * (L[i] - L[i - 1, partner])
-        sel = (pacc > R[i - 1]) & V[i] & V[i - 1, partner]
-        sel_out[i - 1] = sel
-        li, oi = L[i].copy(), O[i].copy()
-        L[i, sel] = L[i - 1, partner[sel]]
-        O[i, sel] = O[i - 1, partner[sel]]
-        L[i - 1, partner[sel]] = li[sel]
-        O[i - 1, partner[sel]] = oi[sel]
-    return L[:, :nw], O[:, :nw], sel_out[:, :nw]
+    return logl, betas, perms, inv_perms, raccept
 
 
-def test_rolled_cascade_matches_numpy():
-    from eryn_tpu.ops.pt_swap import pt_swap_cascade_rolled
-
-    rng = np.random.default_rng(4)
-    ntemps, nw = 5, 200  # pads to 256
-    logl = rng.standard_normal((ntemps, nw)).astype(np.float32) * 10
-    origin = np.arange(ntemps * nw, dtype=np.float32).reshape(ntemps, nw)
-    betas = np.logspace(0, -2, ntemps).astype(np.float32)
-    dbetas = betas[:-1] - betas[1:]
-    shifts = rng.integers(0, nw, size=ntemps - 1).astype(np.int32)
-    raccept = np.log(rng.uniform(size=(ntemps - 1, nw))).astype(np.float32)
-
-    out_l, out_o, sel = pt_swap_cascade_rolled(
+@pytest.mark.parametrize("ntemps,nwalkers", SHAPES)
+def test_cascade_kernel_matches_numpy_reference(ntemps, nwalkers):
+    logl, betas, perms, inv_perms, raccept = _inputs(ntemps, nwalkers, 3)
+    origin = np.arange(ntemps * nwalkers, dtype=np.int32).reshape(ntemps, nwalkers)
+    exp_logl, exp_tree, exp_acc = _numpy_cascade(
+        logl, {"origin": origin}, betas, np.asarray(perms), np.asarray(raccept)
+    )
+    got_logl, flat, acc = swap_cascade(
         jnp.asarray(logl),
-        jnp.asarray(origin),
-        jnp.asarray(dbetas),
-        jnp.asarray(shifts),
-        jnp.asarray(raccept),
+        jnp.asarray(betas[:-1] - betas[1:]),
+        perms,
+        raccept,
         interpret=True,
     )
-    exp_l, exp_o, exp_sel = _numpy_cascade_rolled(
-        logl, origin, dbetas, shifts, raccept, 256
+    np.testing.assert_array_equal(np.asarray(got_logl), exp_logl)
+    np.testing.assert_array_equal(np.asarray(flat), exp_tree["origin"].ravel())
+    np.testing.assert_array_equal(np.asarray(acc), exp_acc)
+    # and bit for bit the XLA rung loop it replaces on the GPU
+    want = cascade_provenance(jnp.asarray(logl), jnp.asarray(betas), perms, inv_perms, raccept)
+    for a, b in zip(want, (got_logl, flat, acc)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("ntemps,nwalkers", [(10, 100), (20, 1000), (7, 333)])
+def test_cascade_kernel_lowers_for_cuda(ntemps, nwalkers):
+    logl, betas, perms, _, raccept = _inputs(ntemps, nwalkers, 4)
+    lowered = (
+        jax.jit(swap_cascade)
+        .trace(jnp.asarray(logl), jnp.asarray(betas[:-1] - betas[1:]), perms, raccept)
+        .lower(lowering_platforms=("cuda",))
     )
-    np.testing.assert_allclose(np.asarray(out_l), exp_l, rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(out_o), exp_o)
-    np.testing.assert_array_equal(np.asarray(sel), exp_sel)
-    # provenance remains a permutation of the real walkers
-    flat = np.asarray(out_o).astype(int).reshape(-1)
-    assert sorted(flat) == list(range(ntemps * nw))
+    assert "pt_swap_cascade" in lowered.as_text()
 
 
-def test_payload_cascade_matches_provenance_path():
-    """The zero-gather payload cascade (state packed into kernel channels,
-    walker relabeling via exact one-hot matmuls) must move every leaf
-    EXACTLY as the provenance+gather formulation given the same draws —
-    bools, bounded ints, and f32 coords included."""
-    from eryn_tpu.moves.tempering import TemperatureControl
+def test_cascade_kernel_vmaps():
+    nt, nw, ng = 4, 33, 3
+    logl = jnp.asarray(
+        np.random.default_rng(0).standard_normal((ng, nt, nw)), jnp.float32
+    )
+    betas = jnp.asarray(TemperatureControl(5, nw, ntemps=nt).betas, jnp.float32)
+    perms, inv, racc = jax.vmap(
+        lambda k: cascade_draws(k, nt, nw, jnp.float32)
+    )(jax.random.split(jax.random.PRNGKey(1), ng))
+    want = jax.vmap(lambda l, p, i, r: cascade_provenance(l, betas, p, i, r))(
+        logl, perms, inv, racc
+    )
+    got = jax.vmap(
+        lambda l, p, r: swap_cascade(l, betas[:-1] - betas[1:], p, r, interpret=True)
+    )(logl, perms, racc)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
-    for ntemps, nw in ((6, 64), (4, 700)):  # one-hot and rolled variants
-        rng = np.random.default_rng(2)
-        tc = TemperatureControl(5, nw, ntemps=ntemps, adaptive=False)
-        logl = jnp.asarray(
-            rng.standard_normal((ntemps, nw)).astype(np.float32) * 5.0
+
+@pytest.mark.parametrize(
+    "backend,dtype,nwalkers,expect",
+    [
+        ("gpu", jnp.float32, 100, True),
+        ("gpu", jnp.float32, tempering.CASCADE_KERNEL_MAX_WALKERS, True),
+        ("gpu", jnp.float32, tempering.CASCADE_KERNEL_MAX_WALKERS + 1, False),
+        ("gpu", jnp.bfloat16, 100, False),
+        ("cpu", jnp.float32, 100, False),
+    ],
+)
+def test_cascade_kernel_choice(monkeypatch, backend, dtype, nwalkers, expect):
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    logl = jax.ShapeDtypeStruct((4, nwalkers), dtype)
+    assert tempering._use_cascade_kernel(logl) is expect
+
+
+@pytest.mark.parametrize("shape", [(1, 16), (3, MAX_WALKERS + 1)])
+def test_cascade_kernel_rejects_unsupported_shapes(shape):
+    nt, nw = shape
+    with pytest.raises(ValueError, match="swap_cascade needs"):
+        jax.eval_shape(
+            swap_cascade,
+            jax.ShapeDtypeStruct((nt, nw), jnp.float32),
+            jax.ShapeDtypeStruct((max(nt - 1, 0),), jnp.float32),
+            jax.ShapeDtypeStruct((max(nt - 1, 0), 2, nw), jnp.int32),
+            jax.ShapeDtypeStruct((max(nt - 1, 0), nw), jnp.float32),
         )
-        betas = jnp.asarray(tc.betas, dtype=jnp.float32)
-        tree = {
-            "coords": {
-                "m": jnp.asarray(
-                    rng.standard_normal((ntemps, nw, 2, 3)).astype(np.float32)
-                )
-            },
-            "inds": {"m": jnp.asarray(rng.random((ntemps, nw, 2)) < 0.5)},
-            "log_prior": jnp.zeros((ntemps, nw), jnp.float32),
-            "supps": {
-                "__prov__": jnp.arange(ntemps * nw, dtype=jnp.int32).reshape(
-                    ntemps, nw
-                )
-            },
-        }
-        key = jax.random.PRNGKey(7)
-
-        assert tc._try_pack_channels(tree, logl) is not None
-        out_pay = tc._swap_kernel_pallas(key, tree, logl, betas, interpret=True)
-
-        orig = tc._try_pack_channels
-        tc._try_pack_channels = lambda *_a, **_k: None
-        try:
-            out_prov = tc._swap_kernel_pallas(
-                key, tree, logl, betas, interpret=True
-            )
-        finally:
-            tc._try_pack_channels = orig
-
-        tree_p, logl_p, acc_p, prop_p = out_pay
-        tree_g, logl_g, acc_g, prop_g = out_prov
-        np.testing.assert_array_equal(np.asarray(logl_p), np.asarray(logl_g))
-        np.testing.assert_array_equal(np.asarray(acc_p), np.asarray(acc_g))
-        np.testing.assert_array_equal(np.asarray(prop_p), np.asarray(prop_g))
-        for (pa, la), (pb, lb) in zip(
-            jax.tree_util.tree_flatten_with_path(tree_p)[0],
-            jax.tree_util.tree_flatten_with_path(tree_g)[0],
-        ):
-            assert pa == pb
-            assert la.dtype == lb.dtype, pa
-            np.testing.assert_array_equal(
-                np.asarray(la), np.asarray(lb), err_msg=str(pa)
-            )
 
 
-def test_payload_pack_fallback_conditions():
-    """Ineligible payloads (f64 logl, unbounded int leaves, oversized
-    blocks) decline the payload path instead of packing lossily."""
-    from eryn_tpu.moves.tempering import TemperatureControl
-    from eryn_tpu.ops import pt_swap
+@pytest.mark.parametrize("cell", ["north_star", "config_e"])
+def test_sampler_with_cascade_kernel_is_bitwise_the_xla_loop(cell, monkeypatch):
+    """A whole compiled segment with the kernel (interpreted) in place of
+    the XLA rung loop gives the same chain state bit for bit."""
+    import functools
 
-    tc = TemperatureControl(5, 64, ntemps=4, adaptive=False)
-    logl32 = jnp.zeros((4, 64), jnp.float32)
-    ok_tree = {"x": jnp.zeros((4, 64, 3), jnp.float32)}
-    assert tc._try_pack_channels(ok_tree, logl32) is not None
-    # f64 ensemble -> decline
-    assert tc._try_pack_channels(ok_tree, jnp.zeros((4, 64))) is None or (
-        jnp.zeros((4, 64)).dtype == jnp.float32  # x64 disabled: f32 anyway
+    import chip_smoke as cs
+    from eryn_tpu.ops import swap_cascade as sc
+
+    def build():
+        np.random.seed(cs.SEED)
+        if cell == "config_e":
+            return cs._config_e_sampler(cs.TINY, 5)
+        s, pr = cs._gaussian_sampler(4, 32, 5)
+        return s, s._setup_state(pr.rvs(size=(4, 32)))
+
+    s, st = build()
+    want, _ = s._run_bulk(st, 1, 12, store=False)
+    monkeypatch.setattr(tempering, "_use_cascade_kernel", lambda logl: True)
+    monkeypatch.setattr(
+        tempering, "swap_cascade", functools.partial(sc.swap_cascade, interpret=True)
     )
-    # arbitrary int leaf -> decline (could exceed f32 exact range)
-    assert (
-        tc._try_pack_channels(
-            {"idx": jnp.zeros((4, 64), jnp.int32)}, logl32
-        )
-        is None
-    )
-    # the sampler's bounded provenance channel is allowed
-    assert (
-        tc._try_pack_channels(
-            {"__prov__": jnp.zeros((4, 64), jnp.int32)}, logl32
-        )
-        is not None
-    )
-    # VMEM budget guard
-    big = {"x": jnp.zeros((4, 64, pt_swap.PAYLOAD_VMEM_BUDGET // (4 * 64)), jnp.float32)}
-    assert tc._try_pack_channels(big, logl32) is None
+    s, st = build()
+    got, _ = s._run_bulk(st, 1, 12, store=False)
+    for a, b in zip(jax.tree_util.tree_leaves(want), jax.tree_util.tree_leaves(got)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

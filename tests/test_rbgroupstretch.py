@@ -214,7 +214,7 @@ def test_gibbs_param_masks(priors):
 
 
 def test_onehot_selection_matches_gather_fallback():
-    """The MXU one-hot complement selection and the memory-lean
+    """The one-hot complement selection and the memory-lean
     searchsorted+gather fallback must produce identical proposals for the
     same key (the selected complement entry is the same (k+1)-th active
     leaf either way), including under partially-empty complements and
@@ -254,44 +254,6 @@ def test_onehot_selection_matches_gather_fallback():
     # active proposals moved and are finite where the complement is nonempty
     moved = np.asarray(s_inds["m"])[0]
     assert np.isfinite(np.asarray(q1["m"])[0][moved]).all()
-
-
-def test_fused_select_kernel_matches_xla_onehot():
-    """The fused VMEM selection kernel (interpret mode here; engaged on
-    TPU by ``get_proposal_kernel``) must reproduce the XLA one-hot
-    selection bitwise — including non-128-multiple shapes (the wrapper
-    pads M with repeated final counts and Q with sentinel draws) and
-    empty complements (cs all zero -> selects the zeroed row 0)."""
-    import jax
-
-    from eryn_tpu.ops.select_kernels import onehot_select
-
-    rng = np.random.default_rng(7)
-    for nt, Q, M, nd in [(3, 10, 24, 2), (2, 130, 257, 3), (1, 1, 1, 1)]:
-        m = (rng.random((nt, M)) < 0.4).astype(np.float32)
-        m[-1] = 0.0  # empty active complement
-        cs = jnp.asarray(np.cumsum(m, axis=-1), jnp.float32)
-        cnt = m.sum(axis=-1)
-        kq = jnp.asarray(
-            np.floor(rng.random((nt, Q)) * np.maximum(cnt, 1.0)[:, None]),
-            jnp.float32,
-        )
-        c_clean = jnp.asarray(
-            rng.normal(size=(nt, M, nd)) * m[:, :, None], jnp.float32
-        )
-
-        gt = (cs[:, None, :] > kq[:, :, None]).astype(jnp.float32)
-        onehot = gt - jnp.concatenate(
-            [jnp.zeros((nt, Q, 1), jnp.float32), gt[:, :, :-1]], axis=-1
-        )
-        expect = jnp.einsum(
-            "tqm,tmd->tqd",
-            onehot,
-            c_clean,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-        got = onehot_select(cs, kq, c_clean, interpret=True)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(expect))
 
 
 def test_segment_plan_taper():

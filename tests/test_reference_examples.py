@@ -79,7 +79,7 @@ def test_reference_example(example):
 
 def test_reference_notebook():
     """``more_tutorials.ipynb`` executes against eryn_tpu through the shim
-    (VERDICT r4 missing #3: the duplicate claim was asserted, never run).
+    (the duplicate claim is run, not just asserted).
     Cells 0-19 run (RJ tutorial scaled to smoke size); cells 14-15 skip
     (ChainConsumer not installed) and 20-34 skip (second tutorial imports
     the git-only ``spectral`` package at cell 20) — reasons cited per cell

@@ -185,7 +185,6 @@ def test_supplemental_swaps_with_coords():
         betas=np.logspace(0, -2, ntemps),
     )
     tc = TemperatureControl(ndim, nw, ntemps=ntemps, adaptive=False)
-    tc.use_pallas = False
 
     new_state, swaps, _ = tc.temper_kernel(
         jax.random.PRNGKey(0), state, jnp.zeros((), jnp.int32), adapt=False
